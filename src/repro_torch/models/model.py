@@ -1,0 +1,172 @@
+"""Config-driven decoder, dense family (port of ``repro/models/model.py``:
+``init_params``, ``prefill``, ``decode_step`` and the decode state).
+
+Params are the JAX tree: ``{"embed": {"w"}, "blocks": [period × stacked
+per-layer dicts with a leading (n_blocks,) axis], "final_norm": {...}}``.
+The JAX block ``lax.scan`` becomes a Python loop over ``n_blocks`` that
+indexes every stacked leaf ``[i]`` (``MultiAdapterDelta`` fields too):
+dim-0 views of contiguous tensors, no copies. The decode state's caches
+are written in place through those views (``attention.kv_cache_write``),
+so ``prefill`` and ``decode_step`` mutate the state they are given and
+return it with the new position.
+
+Only the dense family (GQA attention + dense MLP, RoPE or no positional
+embedding) is ported; other families raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Tuple
+
+import torch
+
+from .. import resolve_device
+from ..configs.base import ArchConfig
+from ..utils import tree
+from . import attention as attn_lib
+from .layers import (apply_norm, dense_init, glu_mlp, glu_mlp_init, mlp,
+                     mlp_init, norm_init)
+
+PyTree = Any
+
+
+def _check_ported(cfg: ArchConfig) -> None:
+    kinds = set(cfg.layer_kinds())
+    if kinds != {("attn", "mlp")} or cfg.pos_emb not in ("rope", "none"):
+        raise NotImplementedError(
+            f"{cfg.name}: layer kinds {sorted(kinds)} / pos_emb "
+            f"{cfg.pos_emb!r} — the port runs the dense family only so far "
+            "(ROADMAP Queue 1 item 11: other model families)")
+
+
+# ------------------------------------------------------------------ init ----
+
+def _init_stacked_layer(gen, cfg: ArchConfig, n_blocks: int) -> dict:
+    """One period position's params, every leaf stacked (n_blocks, ...)."""
+    dtype, dev, lead = cfg.param_dtype, gen.device, (n_blocks,)
+    init_mlp = glu_mlp_init if cfg.mlp_kind == "glu" else mlp_init
+    return {"norm1": norm_init(cfg.d_model, cfg.norm, device=dev, lead=lead),
+            "attn": attn_lib.gqa_init(gen, cfg.d_model, cfg.n_heads,
+                                      cfg.n_kv_heads, cfg.hd, cfg.qkv_bias,
+                                      dtype, lead=lead),
+            "norm2": norm_init(cfg.d_model, cfg.norm, device=dev, lead=lead),
+            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, lead=lead)}
+
+
+def init_params(cfg: ArchConfig, seed: int = 0,
+                device="cuda") -> PyTree:
+    """Random params from a ``torch.Generator`` seeded with ``seed`` on
+    ``device`` (weights N(0, 0.02²), biases 0, norm scales 1 in fp32), in
+    the JAX tree layout. Not the JAX package's numbers: tests carry those
+    across with ``convert.params_from_jax``."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    period, n_blocks = cfg.block_period(), cfg.n_blocks()
+    params = {
+        "embed": {"w": dense_init(gen, (cfg.vocab_size, cfg.d_model),
+                                  dtype=cfg.param_dtype)},
+        "blocks": [_init_stacked_layer(gen, cfg, n_blocks)
+                   for _ in range(period)],
+        "final_norm": norm_init(cfg.d_model, cfg.norm, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"w": dense_init(gen, (cfg.d_model,
+                                                   cfg.vocab_size),
+                                             dtype=cfg.param_dtype)}
+    return params
+
+
+def _block(stacked: PyTree, i: int) -> PyTree:
+    """Per-layer view ``[i]`` of every stacked leaf."""
+    return tree.tree_map(lambda x: x[i], stacked)
+
+
+# --------------------------------------------------------------- forward ----
+
+def _embed(params, cfg: ArchConfig, tokens):
+    return params["embed"]["w"][tokens]
+
+
+def _logits(params, cfg: ArchConfig, h):
+    h = apply_norm(h, params["final_norm"], cfg.norm)
+    w = (params["embed"]["w"].T if cfg.tie_embeddings
+         else params["lm_head"]["w"])
+    return (h @ w).float()
+
+
+def _ffn(lp, cfg: ArchConfig, h):
+    x = apply_norm(h, lp["norm2"], cfg.norm)
+    if cfg.mlp_kind == "glu":
+        return h + glu_mlp(lp["mlp"], x, cfg.act)
+    return h + mlp(lp["mlp"], x, cfg.act)
+
+
+# ---------------------------------------------------------------- decode ----
+
+class DecodeState(NamedTuple):
+    t: torch.Tensor     # int32 absolute position: 0-d (homogeneous batch)
+                        # or (B,) per-slot (continuous batching)
+    layers: PyTree      # list (period) of stacked per-block KVCaches
+
+
+def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
+                      per_slot: bool = False, device="cuda") -> DecodeState:
+    """Empty bf16 KV caches (every config, as in the JAX package) stacked
+    (n_blocks, B, cache_len, ...). ``per_slot`` starts ``t`` as a (B,)
+    vector — each batch row advances at its own depth."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    layers = [attn_lib.kv_cache_init(batch, cache_len, cfg.n_kv_heads,
+                                     cfg.hd, device=dev,
+                                     lead=(cfg.n_blocks(),))
+              for _ in range(cfg.block_period())]
+    t = torch.zeros((batch,) if per_slot else (), dtype=torch.int32,
+                    device=dev)
+    return DecodeState(t=t, layers=layers)
+
+
+def _attn_kwargs(cfg: ArchConfig) -> dict:
+    return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
+                rope=(cfg.pos_emb == "rope"), rope_theta=cfg.rope_theta,
+                window=cfg.sliding_window)
+
+
+def decode_step(params: PyTree, cfg: ArchConfig, token: torch.Tensor,
+                state: DecodeState) -> Tuple[torch.Tensor, DecodeState]:
+    """One new token for every sequence in the batch. token (B,) int32.
+    Returns (fp32 logits (B, V), state advanced by one)."""
+    h = params["embed"]["w"][token][:, None, :]       # (B, 1, D)
+    for i in range(cfg.n_blocks()):
+        for j in range(cfg.block_period()):
+            lp = _block(params["blocks"][j], i)
+            st = _block(state.layers[j], i)
+            x = apply_norm(h, lp["norm1"], cfg.norm)
+            out, _ = attn_lib.gqa_decode(lp["attn"], x, st, state.t,
+                                         **_attn_kwargs(cfg))
+            h = _ffn(lp, cfg, h + out)
+    logits = _logits(params, cfg, h)[:, 0, :]
+    return logits, DecodeState(t=state.t + 1, layers=state.layers)
+
+
+def prefill(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor,
+            state: DecodeState) -> Tuple[torch.Tensor, DecodeState]:
+    """Process a prompt, filling a fresh state's caches in place. Returns
+    (last-position fp32 logits, state with 0-d ``t = L``)."""
+    h = _embed(params, cfg, tokens)
+    l_total = h.shape[1]
+    positions = torch.arange(l_total, device=h.device)
+    for i in range(cfg.n_blocks()):
+        for j in range(cfg.block_period()):
+            lp = _block(params["blocks"][j], i)
+            st = _block(state.layers[j], i)
+            x = apply_norm(h, lp["norm1"], cfg.norm)
+            out, (k, v) = attn_lib.gqa_forward(
+                lp["attn"], x, positions, attn_chunk=cfg.attn_chunk,
+                **_attn_kwargs(cfg))
+            attn_lib.kv_cache_write(st, k, v, 0)
+            h = _ffn(lp, cfg, h + out)
+    logits = _logits(params, cfg, h[:, -1:, :])[:, 0, :]
+    return logits, DecodeState(
+        t=torch.tensor(l_total, dtype=torch.int32, device=h.device),
+        layers=state.layers)
