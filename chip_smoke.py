@@ -2,16 +2,25 @@
 
   python3 chip_smoke.py [--seed 0]
 
-Builds every CUDA kernel of the serving path from ``src/repro_torch``,
-holds each kernel against its plain PyTorch version at the path's shapes,
-serves qwen1.5-0.5b at full width (bf16, 24 layers, random weights from
-``--seed``) with 8 heterogeneous adapters through ``SlotServer`` and
-``generate``, checks that every projection went through the kernel,
-compares one prefill + 4 decode steps against the plain version end to
-end, and times each kernel against its bound. Every phase prints JSON
-lines; any failure raises and the script exits non-zero without the
-closing ``{"ok": true, ...}`` line. Needs one CUDA card; imports neither
-JAX nor the JAX package.
+Builds every CUDA kernel from ``src/repro_torch`` (one ``nvcc`` per source,
+all at once) and drives both paths of the port at the full width of
+qwen1.5-0.5b (bf16, 24 layers, random weights from ``--seed``):
+
+* serving: ``SlotServer`` and ``generate`` with 8 heterogeneous adapters
+  through ``lowrank_linear_batched``;
+* training: two FedGaLore rounds through ``FedEngine.run_round`` (4
+  clients, 2 local steps, batch 4 x 128, rank 8) — round 0 through
+  ``galore_precond_step`` and ``jacobi_eigh``, round 1 through
+  ``lowrank_linear`` and ``jacobi_eigh``.
+
+Each kernel is held against its plain PyTorch version at every shape its
+path launches (a ``ShapeLog`` fails the run on an unchecked shape), the
+launch counters show each path went through its kernels, each path is
+compared end to end against a run with every kernel's plain version
+(``ops.plain_kernels``), and each kernel is timed against its bound.
+Every phase prints JSON lines; any failure raises and the script exits
+non-zero without the closing ``{"ok": true, ...}`` line. Needs one CUDA
+card; imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
@@ -41,6 +50,30 @@ SHAPES = [(1024, 1024), (1024, 2816), (2816, 1024)]   # (m, n) of the path
 # (1024,2816), w_down @ (2816,1024)
 LAYER_MIX = {(1024, 1024): 4, (1024, 2816): 2, (2816, 1024): 1}
 PARITY_BOUND = 5e-2     # max |logit diff| / max |logit|, bf16 end to end
+
+# The training path: two FedGaLore rounds at full width.
+CLIENTS, LOCAL_STEPS, TRAIN_B, TRAIN_L, TRAIN_R = 4, 2, 4, 128, 8
+TRAIN_LR = 3e-3
+# Bounds set before the chip runs that test them (PERF.md): kernels vs
+# plain versions, two rounds, bf16 weights. A loss near log(151936) ~ 12
+# moves by ~1e-3 of itself when logits move by a bf16 ulp. The leaves are
+# compared by what the two rounds changed, D = leaf - init: the Frobenius
+# norm of D_kernel - D_plain over that of D_plain, all target leaves
+# together. Dropping either round's update moves it by the norm of that
+# round's share of D (predicted 0.5-0.85); the run also computes both
+# such controls and fails unless each exceeds the bound.
+TRAIN_LOSS_BOUND = 5e-2      # max |Δ per-step loss|
+TRAIN_DELTA_BOUND = 0.3      # |D_kernel - D_plain|_F / |D_plain|_F
+# Launches the two rounds must show (stated before the first run):
+# round 0 runs the fused preconditioner once per shape bucket (3) per
+# client per local step and 𝒮 once per 𝒮 bucket (3); round 1 runs the
+# lift-free apply 7 x 24 = 168 times per forward, 8 forwards, and 𝒮 again.
+EXPECTED_LAUNCHES = {
+    0: {"galore_precond_step": 3 * CLIENTS * LOCAL_STEPS, "jacobi_eigh": 3,
+        "lowrank_linear": 0},
+    1: {"galore_precond_step": 0, "jacobi_eigh": 3,
+        "lowrank_linear": 168 * CLIENTS * LOCAL_STEPS},
+}
 
 
 def emit(obj) -> None:
@@ -75,9 +108,11 @@ def ptxas_summary(log: str):
         if m:
             name = m.group(1)
             short = re.search(r"(shrink_kernel|gemm_kernel|"
-                              r"reduce_epilogue_kernel)I(.*?)EEv", name)
+                              r"reduce_epilogue_kernel|right_kernel|"
+                              r"left_kernel)I(.*?)EEv", name)
+            plain = re.search(r"(jacobi_kernel)", name)
             cur = {"function": (short.group(1) + "<" + short.group(2) + ">")
-                   if short else name}
+                   if short else plain.group(1) if plain else name}
             out.append(cur)
             continue
         if cur is None:
@@ -185,13 +220,11 @@ def graph_ms(fn, sets, calls=20, replays=5):
 # ---------------------------------------------------------------- phases --
 
 def phase_build():
+    """One nvcc per source, all started together."""
     from repro_torch.kernels import _build
-    t0 = time.perf_counter()
-    for src in sorted(_build.CSRC.glob("*.cu")):
-        _build.build(src.stem)
-        emit({"phase": "build", "kernel": src.stem,
-              "seconds": time.perf_counter() - t0,
-              "ptxas": ptxas_summary(_build.PTXAS_LOG.get(src.stem, ""))})
+    for name, seconds in _build.build_all().items():
+        emit({"phase": "build", "kernel": name, "seconds": seconds,
+              "ptxas": ptxas_summary(_build.PTXAS_LOG.get(name, ""))})
 
 
 def phase_kernel_checks(gen):
@@ -232,27 +265,43 @@ def phase_kernel_checks(gen):
 
 
 class ShapeLog:
-    """Records the (B, t, m, n, dims, dtype) of every kernel call made
-    inside the context. ``kernels.ops`` reaches the wrapper through its
-    module reference ``_ll``; that reference alone is swapped, so the
-    wrapper and its launch counter stay as they are."""
+    """Records the shape key of every call ``kernels.ops`` makes to the
+    wrappers named in ``logged`` ({ops module attribute: {function: key
+    function}}). Only ``ops``' module references are swapped for proxies,
+    so the wrappers and their launch counters stay as they are."""
+
+    def __init__(self, logged):
+        self.logged = logged
 
     def __enter__(self):
         from types import SimpleNamespace
         from repro_torch.kernels import ops
-        self.ops, self.orig, self.seen = ops, ops._ll, set()
+        self.ops, self.orig, self.seen = ops, {}, {}
+        for attr, fns in self.logged.items():
+            mod = getattr(ops, attr)
+            self.orig[attr] = mod
+            proxy = SimpleNamespace(**{k: getattr(mod, k) for k in dir(mod)
+                                       if not k.startswith("__")})
+            for fname, key in fns.items():
+                self.seen[fname] = set()
 
-        def logged(x, w, *args, **kw):
-            self.seen.add(case_key(x, w))
-            return self.orig.lowrank_linear_batched(x, w, *args, **kw)
+                def logged(*args, _f=getattr(mod, fname), _k=key,
+                           _s=self.seen[fname], **kw):
+                    _s.add(_k(*args, **kw))
+                    return _f(*args, **kw)
 
-        ops._ll = SimpleNamespace(infer_side=self.orig.infer_side,
-                                  lowrank_linear_batched=logged)
+                setattr(proxy, fname, logged)
+            setattr(ops, attr, proxy)
         return self
 
     def __exit__(self, *exc):
-        self.ops._ll = self.orig
+        for attr, mod in self.orig.items():
+            setattr(self.ops, attr, mod)
         return False
+
+
+def _batched_key(x, w, *args, **kw):
+    return case_key(x, w)
 
 
 def phase_serve(seed, card, checked):
@@ -282,7 +331,7 @@ def phase_serve(seed, card, checked):
         [serve.Request(rid=0, prompt=prompts[0], max_new=2)])
 
     ll.lowrank_linear_batched.launches = 0
-    with ShapeLog() as log:
+    with ShapeLog({"_ll": {"lowrank_linear_batched": _batched_key}}) as log:
         srv = serve.SlotServer(served, cfg, slots=B, cache_len=PROMPT + NEW,
                                segment=8)
         out = srv.run(reqs)
@@ -290,8 +339,9 @@ def phase_serve(seed, card, checked):
                                  adapters=np.arange(B) % G)
         torch.cuda.synchronize()
     launches = ll.lowrank_linear_batched.launches
-    check(log.seen <= checked, "the main path launched the kernel at shapes "
-          f"the kernel checks did not cover: {sorted(log.seen - checked)}")
+    seen = log.seen["lowrank_linear_batched"]
+    check(seen <= checked, "the main path launched the kernel at shapes "
+          f"the kernel checks did not cover: {sorted(seen - checked)}")
 
     s = out["stats"]
     forwards = (s["admitted"] + s["segments"] * srv.segment   # SlotServer
@@ -316,7 +366,7 @@ def phase_serve(seed, card, checked):
           "decode_tok_s": s["decode_tok_s"], "segments": s["segments"],
           "forwards": forwards, "launches": launches,
           "launches_per_forward": per_forward,
-          "kernel_shapes": sorted(log.seen)})
+          "kernel_shapes": sorted(seen)})
     return cfg, served, launches
 
 
@@ -347,7 +397,7 @@ def phase_parity(cfg, served, seed):
         return torch.stack(outs)
 
     got = run()
-    with ops.lowrank_kernel_override():
+    with ops.plain_kernels():
         want = run()
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got).all()), "kernel-path logits not finite")
@@ -404,6 +454,517 @@ def phase_times(gen, card):
     return rows
 
 
+# ------------------------------------------------------ training path --
+
+TRAIN_SHAPES = {(1024, 1024): 4, (1024, 2816): 2, (2816, 1024): 1}   # per layer
+
+
+def _lowrank_key(x, w, basis, rt, scale, **kw):
+    return (tuple(x.shape), tuple(w.shape), str(x.dtype), str(w.dtype))
+
+
+def _precond_key(g, basis, m, v, count, **kw):
+    return (tuple(g.shape), tuple(basis.shape),
+            bool(kw.get("project_back", True)))
+
+
+def _eigh_key(a, **kw):
+    return tuple(a.shape)
+
+
+TRAIN_LOG = {"_ll": {"lowrank_linear": _lowrank_key},
+             "_galore": {"galore_precond_step": _precond_key},
+             "_eigh": {"jacobi_eigh": _eigh_key}}
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max().item()
+            / max(want.float().abs().max().item(), 1e-30))
+
+
+def _lowrank_case(gen, shape_x, m, n, dtype):
+    side = "right" if m >= n else "left"
+    x = torch.randn(shape_x + (m,), generator=gen, device="cuda").to(dtype)
+    w = (0.02 * torch.randn(m, n, generator=gen, device="cuda")).to(dtype)
+    dim = n if side == "right" else m
+    basis = torch.linalg.qr(torch.randn(dim, TRAIN_R, generator=gen,
+                                        device="cuda"))[0].contiguous()
+    rt = 0.01 * torch.randn(*((m, TRAIN_R) if side == "right"
+                              else (TRAIN_R, n)), generator=gen,
+                            device="cuda")
+    scale = torch.tensor(0.999, device="cuda")
+    return dict(x=x, w=w, basis=basis, rt=rt, scale=scale, side=side)
+
+
+def _precond_case(gen, lead, mm, nn, r=TRAIN_R):
+    side = "right" if mm >= nn else "left"
+    dim = nn if side == "right" else mm
+    g = 1e-3 * torch.randn(lead + (mm, nn), generator=gen, device="cuda")
+    basis = torch.linalg.qr(torch.randn(lead + (dim, r), generator=gen,
+                                        device="cuda"))[0].contiguous()
+    msh = lead + ((mm, r) if side == "right" else (r, nn))
+    m = 1e-3 * torch.randn(msh, generator=gen, device="cuda")
+    v = 1e-6 * torch.rand(msh, generator=gen, device="cuda")
+    return dict(g=g, basis=basis, m=m, v=v, side=side)
+
+
+def _spd_case(gen, lead, n):
+    x = torch.randn(lead + (n, n + 3), generator=gen, device="cuda")
+    return (x @ x.mT).contiguous()
+
+
+def phase_train_kernel_checks(gen):
+    """Each training kernel against its plain version at every shape the
+    two rounds launch, plus masked tails, odd M, both sides, both
+    project_back values, fp32 and bf16, n = 1..64 and exact-zero
+    off-diagonals with a mask for the eigensolver. Returns per kernel the
+    worst absolute error and the keys checked."""
+    from repro_torch.kernels import batched_eigh as be
+    from repro_torch.kernels import galore_adamw as ga
+    from repro_torch.kernels import lowrank_linear as ll
+    from repro_torch.kernels import ops, ref
+    out = {k: [0.0, set()] for k in ("lowrank_linear", "galore_precond_step",
+                                     "galore_adamw_step", "jacobi_eigh")}
+
+    # lowrank_linear: the round-1 forward (B, L) = (4, 128), bf16; ragged
+    # row tails and fp32 beside it.
+    for (m, n) in TRAIN_SHAPES:
+        for lead, dtype in (((TRAIN_B, TRAIN_L), torch.bfloat16),
+                            ((TRAIN_B, 100), torch.bfloat16),
+                            ((3, 37), torch.float32)):
+            c = _lowrank_case(gen, lead, m, n, dtype)
+            y = ll.lowrank_linear(c["x"], c["w"], c["basis"], c["rt"],
+                                  c["scale"], side=c["side"])
+            torch.cuda.synchronize()
+            want = ref.lowrank_linear_ref(c["x"], c["w"], c["basis"],
+                                          c["rt"], c["scale"], side=c["side"])
+            err = (y.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            tol = 1e-5 * scale if dtype == torch.float32 else \
+                2 * bf16_ulp(scale)
+            emit({"phase": "train_kernel_check", "kernel": "lowrank_linear",
+                  "x": list(c["x"].shape), "m": m, "n": n,
+                  "dtype": str(dtype).split(".")[1], "side": c["side"],
+                  "max_abs_err": err, "out_scale": scale, "tol": tol})
+            check(y.dtype == want.dtype and err <= tol,
+                  f"lowrank_linear disagrees at x {tuple(c['x'].shape)} "
+                  f"w ({m}, {n}) {dtype}: {err} > {tol}")
+            out["lowrank_linear"][0] = max(out["lowrank_linear"][0], err)
+            out["lowrank_linear"][1].add(_lowrank_key(c["x"], c["w"], None,
+                                                      None, None))
+
+    # galore_precond_step: round 0's buckets (leaves, 24 layers, M, N),
+    # project_back=False; odd M / small blocks and project_back=True too.
+    cases = [((4, 24), 1024, 1024, False), ((2, 24), 1024, 2816, False),
+             ((1, 24), 2816, 1024, False), ((3,), 37, 20, True),
+             ((3,), 37, 20, False), ((2,), 20, 37, True),
+             ((2,), 20, 37, False), ((1, 2), 1024, 2816, True)]
+    for lead, mm, nn, pb in cases:
+        c = _precond_case(gen, lead, mm, nn)
+        got = ga.galore_precond_step(c["g"], c["basis"], c["m"], c["v"], 3,
+                                     side=c["side"], project_back=pb)
+        torch.cuda.synchronize()
+        c1, c2 = ga.bias_corrections(3, 0.9, 0.999)
+        want = ref.galore_precond_ref(c["g"], c["basis"], c["m"], c["v"],
+                                      c1=c1, c2=c2, side=c["side"],
+                                      project_back=pb)
+        errs = [_rel(a, b) for a, b in zip(got, want)]
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        emit({"phase": "train_kernel_check", "kernel": "galore_precond_step",
+              "g": list(c["g"].shape), "side": c["side"], "project_back": pb,
+              "max_abs_err": err, "rel_err_u_m_v": errs, "tol_rel": 1e-5})
+        check(max(errs) <= 1e-5, f"galore_precond_step disagrees at "
+              f"{tuple(c['g'].shape)} pb={pb}: {errs}")
+        out["galore_precond_step"][0] = max(out["galore_precond_step"][0],
+                                            err)
+        out["galore_precond_step"][1].add(_precond_key(
+            c["g"], c["basis"], None, None, None, project_back=pb))
+
+    # galore_adamw_step (tests only in the reference): both sides, bf16 and
+    # fp32 weights, odd M.
+    for lead, mm, nn, wdt in (((24,), 2816, 1024, torch.bfloat16),
+                              ((24,), 1024, 2816, torch.bfloat16),
+                              ((3,), 37, 20, torch.float32),
+                              ((2,), 20, 37, torch.float32)):
+        c = _precond_case(gen, lead, mm, nn)
+        w = (0.02 * torch.randn(lead + (mm, nn), generator=gen,
+                                device="cuda")).to(wdt)
+        got = ga.galore_adamw_step(w, c["g"], c["basis"], c["m"], c["v"], 3,
+                                   side=c["side"], lr=1e-3,
+                                   weight_decay=0.01)
+        torch.cuda.synchronize()
+        c1, c2 = ga.bias_corrections(3, 0.9, 0.999)
+        want = ref.galore_adamw_ref(w, c["g"], c["basis"], c["m"], c["v"],
+                                    c1=c1, c2=c2, side=c["side"], lr=1e-3,
+                                    weight_decay=0.01)
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(got, want))
+        wscale = want[0].float().abs().max().item()
+        tol_w = 1e-5 * wscale if wdt == torch.float32 else bf16_ulp(wscale)
+        ok = ((got[0].float() - want[0].float()).abs().max().item() <= tol_w
+              and max(_rel(a, b) for a, b in zip(got[1:], want[1:])) <= 1e-5)
+        emit({"phase": "train_kernel_check", "kernel": "galore_adamw_step",
+              "w": list(w.shape), "dtype": str(wdt).split(".")[1],
+              "side": c["side"], "max_abs_err": err, "tol_w": tol_w})
+        check(ok, f"galore_adamw_step disagrees at {tuple(w.shape)}")
+        out["galore_adamw_step"][0] = max(out["galore_adamw_step"][0], err)
+
+    # jacobi_eigh: 𝒮's Phase-1 Grams (bucket leaves, 24, 4 clients, 8, 8)
+    # and (24, 4, 8, 8) for the singleton bucket; n = 1..64; a diagonal
+    # input (exact-zero off-diagonals) through the masked ops path.
+    shapes = [(4, 24, CLIENTS), (24, CLIENTS), (2, 24, CLIENTS)]
+    cases = [(lead, TRAIN_R) for lead in shapes] + \
+        [((7,), n) for n in range(1, 65)]
+    for lead, n in cases:
+        a = _spd_case(gen, lead, n)
+        lam, vec = be.jacobi_eigh(a)
+        torch.cuda.synchronize()
+        lam_p, vec_p = ref.jacobi_eigh_ref(a)
+        scale = lam_p.abs().max().item()
+        err_l = (lam - lam_p).abs().max().item()
+        recon = (vec * lam[..., None, :]) @ vec.mT
+        err_r = (recon - a).abs().max().item() / max(scale, 1e-30)
+        orth = (vec.mT @ vec - torch.eye(n, device="cuda")).abs().max().item()
+        tol = 1e-5 * max(n, 8)
+        if (lead, n) in [(ld, TRAIN_R) for ld in shapes] or n in (1, 8, 17,
+                                                                  64):
+            emit({"phase": "train_kernel_check", "kernel": "jacobi_eigh",
+                  "a": list(a.shape), "max_abs_err": err_l,
+                  "rel_err_lam": err_l / max(scale, 1e-30),
+                  "rel_recon": err_r, "orth": orth, "tol": tol})
+        check(err_l <= tol * scale and err_r <= tol and orth <= tol,
+              f"jacobi_eigh disagrees at {tuple(a.shape)}: lam {err_l} "
+              f"recon {err_r} orth {orth}")
+        out["jacobi_eigh"][0] = max(out["jacobi_eigh"][0], err_l)
+        out["jacobi_eigh"][1].add(tuple(a.shape))
+    diag = torch.diag_embed(torch.tensor([[3.0, 1.0, 2.0, 0.5]] * 3,
+                                         device="cuda"))
+    diag[1, 0, 0] = float("nan")                 # masked payload
+    mask = torch.tensor([True, False, True], device="cuda")
+    lam, vec = ops.batched_small_eigh(diag, mask=mask)
+    torch.cuda.synchronize()
+    with ops.plain_kernels():
+        lam_p, vec_p = ops.batched_small_eigh(diag, mask=mask)
+    check(torch.equal(lam, lam_p) and torch.equal(vec, vec_p)
+          and bool((lam[1] == 0).all()) and bool(torch.isfinite(vec).all()),
+          "jacobi_eigh: exact-zero off-diagonals or the mask misbehave")
+    emit({"phase": "train_kernel_check", "kernel": "jacobi_eigh",
+          "case": "diagonal input, one masked slice", "exact": True})
+    return out
+
+
+def _train_setup(seed):
+    """Full-width qwen1.5-0.5b (bf16, random weights from ``seed``), the
+    FedGaLore engine and its batcher."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.fed import FedConfig, FedEngine
+    from repro_torch.data import FederatedBatcher, seq_classification
+    from repro_torch.launch.steps import galore_target_fn
+    from repro_torch.models import model as model_lib
+    cfg = get_config("qwen1.5-0.5b")
+    check(cfg.param_dtype == torch.bfloat16 and cfg.n_layers == 24,
+          "qwen1.5-0.5b config is not the full-width bf16 one")
+    params = model_lib.init_params(cfg, seed=seed, device="cuda")
+    task = seq_classification(n_examples=256, n_classes=4, seq_len=TRAIN_L,
+                              vocab=cfg.vocab_size, seed=seed)
+    batcher = FederatedBatcher(task, n_clients=CLIENTS, batch_size=TRAIN_B,
+                               alpha=0.5, seed=seed)
+    engine = FedEngine(
+        FedConfig(method="fedgalore", rank=TRAIN_R, lr=TRAIN_LR,
+                  local_steps=LOCAL_STEPS, seed=seed),
+        loss_fn=lambda p, b: model_lib.loss_fn(p, cfg, b), params=params,
+        target_fn=galore_target_fn(cfg))
+    return cfg, engine, batcher
+
+
+def _launch_counts():
+    from repro_torch.kernels import batched_eigh as be
+    from repro_torch.kernels import galore_adamw as ga
+    from repro_torch.kernels import lowrank_linear as ll
+    return {"lowrank_linear": ll.lowrank_linear.launches,
+            "galore_precond_step": ga.galore_precond_step.launches,
+            "galore_adamw_step": ga.galore_adamw_step.launches,
+            "jacobi_eigh": be.jacobi_eigh.launches,
+            "lowrank_linear_batched": ll.lowrank_linear_batched.launches}
+
+
+def _zero_counts():
+    from repro_torch.kernels import batched_eigh as be
+    from repro_torch.kernels import galore_adamw as ga
+    from repro_torch.kernels import lowrank_linear as ll
+    for fn in (ll.lowrank_linear, ga.galore_precond_step,
+               ga.galore_adamw_step, be.jacobi_eigh,
+               ll.lowrank_linear_batched):
+        fn.launches = 0
+
+
+def _run_train(seed, plain: bool):
+    """Two FedGaLore rounds; returns per-round losses, times and launch
+    counts, the global target leaves at the start, after round 0 and at
+    the end (``snaps``), and the shapes each kernel saw."""
+    from repro_torch.kernels import ops
+    from repro_torch.utils import tree
+    cfg, engine, batcher = _train_setup(seed)
+
+    def snap():
+        return [x.detach().clone()
+                for x in tree.tree_leaves(engine.global_trainable)]
+
+    snaps = {"init": snap()}
+    rounds = []
+    with ShapeLog(TRAIN_LOG) as log:
+        for rnd in range(2):
+            batches = batcher.round_batches(LOCAL_STEPS)
+            torch.cuda.synchronize()
+            _zero_counts()
+            t0 = time.perf_counter()
+            if plain:
+                with ops.plain_kernels():
+                    metrics = engine.run_round(batches)
+            else:
+                metrics = engine.run_round(batches)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            rounds.append({"round": rnd, "seconds": seconds,
+                           "launches": _launch_counts(),
+                           "losses": metrics["local_loss"].cpu()})
+            snaps["round0" if rnd == 0 else "final"] = snap()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return cfg, engine, rounds, snaps, log.seen, peak
+
+
+def phase_train(seed, card, checked):
+    """The training path at full width: two rounds of fedgalore through
+    FedEngine.run_round, every kernel of the path counted per round."""
+    torch.cuda.reset_peak_memory_stats()
+    cfg, engine, rounds, snaps, seen, peak = _run_train(seed, plain=False)
+    for name, keys in seen.items():
+        check(keys <= checked[name][1], f"the training path launched {name} "
+              f"at shapes the checks did not cover: "
+              f"{sorted(keys - checked[name][1])}")
+    for r in rounds:
+        losses = r["losses"]
+        check(tuple(losses.shape) == (CLIENTS, LOCAL_STEPS)
+              and bool(torch.isfinite(losses).all()),
+              f"round {r['round']}: losses {losses}")
+        for name, want in EXPECTED_LAUNCHES[r["round"]].items():
+            check(r["launches"][name] == want,
+                  f"round {r['round']}: {name} launched "
+                  f"{r['launches'][name]} times, expected {want}")
+        check(r["launches"]["galore_adamw_step"] == 0
+              and r["launches"]["lowrank_linear_batched"] == 0,
+              "the training path launched a kernel it does not run")
+        emit({"phase": "train", "arch": cfg.name, "card": card,
+              "round": r["round"], "clients": CLIENTS,
+              "local_steps": LOCAL_STEPS, "batch": TRAIN_B, "seq": TRAIN_L,
+              "rank": TRAIN_R, "round_s": r["seconds"],
+              "tokens_per_s": CLIENTS * LOCAL_STEPS * TRAIN_B * TRAIN_L
+              / r["seconds"], "launches": r["launches"],
+              "losses": r["losses"].tolist()})
+    check(all(bool(torch.isfinite(x.float()).all())
+              for x in snaps["final"]),
+          "non-finite global leaves after two rounds")
+    emit({"phase": "train", "kernel_shapes": {k: sorted(v)
+                                              for k, v in seen.items()},
+          "peak_gib": peak})
+    launches = {name: sum(r["launches"][name] for r in rounds)
+                for name in ("lowrank_linear", "galore_precond_step",
+                             "galore_adamw_step", "jacobi_eigh")}
+    del engine
+    torch.cuda.empty_cache()
+    return rounds, snaps, launches
+
+
+def _change_rel(got, want, init):
+    """How far the change ``got - init`` is from ``want - init``: the
+    Frobenius norm of the difference over that of ``want - init``, and
+    the same with max |.| in place of the norm, over all leaves."""
+    num = den = 0.0
+    max_num = max_den = 0.0
+    for g, w, i in zip(got, want, init):
+        d = g.float() - w.float()
+        dw = w.float() - i.float()
+        num += float(torch.sum(d * d))
+        den += float(torch.sum(dw * dw))
+        max_num = max(max_num, float(d.abs().max()))
+        max_den = max(max_den, float(dw.abs().max()))
+    return (num / max(den, 1e-30)) ** 0.5, max_num / max(max_den, 1e-30)
+
+
+def phase_train_parity(seed, rounds, snaps):
+    """The same two rounds with every kernel's plain version, compared per
+    step loss and by the change of the global leaves from their start.
+    Two controls show the leaves' bound fails where a round's update is
+    lost: the kernel run's leaves after round 0 (round 1's update
+    dropped), and its end leaves less round 0's change (round 0's update
+    dropped)."""
+    _, engine, plain_rounds, plain, _, _ = _run_train(seed, plain=True)
+    for r in plain_rounds:
+        check(sum(r["launches"].values()) == 0,
+              f"plain run launched kernels: {r['launches']}")
+    check(all(torch.equal(a, b) for a, b in zip(snaps["init"],
+                                                 plain["init"])),
+          "the kernel and plain runs did not start from the same weights")
+    loss_diff = max((a["losses"] - b["losses"]).abs().max().item()
+                    for a, b in zip(rounds, plain_rounds))
+    init, want = plain["init"], plain["final"]
+    delta_rel, delta_max_rel = _change_rel(snaps["final"], want, init)
+    no_round0 = [f.float() - (r0.float() - i.float()) for f, r0, i in
+                 zip(snaps["final"], snaps["round0"], init)]
+    controls = {"round1_dropped": _change_rel(snaps["round0"], want,
+                                              init)[0],
+                "round0_dropped": _change_rel(no_round0, want, init)[0]}
+    emit({"phase": "train_parity", "rounds": 2,
+          "max_abs_loss_diff": loss_diff, "loss_bound": TRAIN_LOSS_BOUND,
+          "delta_rel_fro": delta_rel, "delta_bound": TRAIN_DELTA_BOUND,
+          "delta_rel_max": delta_max_rel, "controls": controls,
+          "plain_round_s": [r["seconds"] for r in plain_rounds]})
+    check(loss_diff <= TRAIN_LOSS_BOUND, f"train losses differ by "
+          f"{loss_diff} > {TRAIN_LOSS_BOUND}")
+    check(delta_rel <= TRAIN_DELTA_BOUND, f"the rounds' change of the "
+          f"global leaves differs by {delta_rel} of its norm > "
+          f"{TRAIN_DELTA_BOUND}")
+    check(min(controls.values()) > TRAIN_DELTA_BOUND,
+          f"a control with a round's update dropped reads {controls}, not "
+          f"above the bound {TRAIN_DELTA_BOUND}: the check cannot see it")
+    del engine
+    torch.cuda.empty_cache()
+
+
+def _bound(nbytes, flops_by_peak):
+    bytes_s = nbytes / PEAK_BYTES
+    ops_s = sum(f / p for f, p in flops_by_peak)
+    return (max(bytes_s, ops_s) * 1e3,
+            "operations" if ops_s > bytes_s else "bytes")
+
+
+def _timed(row, fns, sets, no_graph=()):
+    """Eager ms of each function; device ms from a CUDA graph except for
+    the keys in ``no_graph`` (calls that synchronise with the host cannot
+    be captured), which get None."""
+    for key, fn in fns.items():
+        if fn is None:
+            row[key] = row["device_" + key] = None
+            continue
+        row[key] = time_ms(fn, sets)
+        row["device_" + key] = None if key in no_graph else \
+            graph_ms(fn, sets)
+    return row
+
+
+def phase_train_times(gen, card):
+    """Each training kernel, its plain version and the library call at the
+    path's shapes; the bound from each call's bytes and operations."""
+    from repro_torch.kernels import batched_eigh as be
+    from repro_torch.kernels import galore_adamw as ga
+    from repro_torch.kernels import lowrank_linear as ll
+    from repro_torch.kernels import ref
+    rows = []
+    c1, c2 = ga.bias_corrections(3, 0.9, 0.999)
+    for (m, n), per_layer in TRAIN_SHAPES.items():
+        per = 2 * (m * n + TRAIN_B * TRAIN_L * (m + n))
+        sets = [_lowrank_case(gen, (TRAIN_B, TRAIN_L), m, n, torch.bfloat16)
+                for _ in range(max(2, -(-150_000_000 // per)))]
+        c = sets[0]
+        rows_ = TRAIN_B * TRAIN_L
+        b_ms, b_by = _bound(
+            2 * (c["x"].numel() + c["w"].numel() + rows_ * n)
+            + 4 * (c["basis"].numel() + c["rt"].numel()),
+            [(2.0 * rows_ * m * n, PEAK_BF16),
+             (2.0 * rows_ * TRAIN_R * (m + n), PEAK_FP32)])
+        row = {"phase": "train_times", "kernel": "lowrank_linear",
+               "card": card, "x": [TRAIN_B, TRAIN_L, m], "w": [m, n],
+               "per_layer": per_layer, "bound_ms": b_ms, "bound_by": b_by,
+               "library": "torch.matmul(x, W), base product only"}
+        rows.append(_timed(row, {
+            "ms": lambda c: ll.lowrank_linear(c["x"], c["w"], c["basis"],
+                                              c["rt"], c["scale"],
+                                              side=c["side"]),
+            "plain_ms": lambda c: ref.lowrank_linear_ref(
+                c["x"], c["w"], c["basis"], c["rt"], c["scale"],
+                side=c["side"]),
+            "library_ms": lambda c: torch.matmul(c["x"], c["w"])}, sets))
+        emit(rows[-1])
+        del sets
+    for lead, mm, nn in (((4, 24), 1024, 1024), ((2, 24), 1024, 2816),
+                         ((1, 24), 2816, 1024)):
+        sets = [_precond_case(gen, lead, mm, nn) for _ in range(2)]
+        c = sets[0]
+        blocks = int(np.prod(lead))
+        b_ms, b_by = _bound(
+            4 * (c["g"].numel() + c["basis"].numel() + 4 * c["m"].numel()),
+            [(2.0 * blocks * mm * nn * TRAIN_R, PEAK_FP32)])
+        row = {"phase": "train_times", "kernel": "galore_precond_step",
+               "card": card, "g": list(c["g"].shape), "project_back": False,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library": "no single call"}
+        rows.append(_timed(row, {
+            "ms": lambda c: ga.galore_precond_step(
+                c["g"], c["basis"], c["m"], c["v"], 3, side=c["side"],
+                project_back=False),
+            "plain_ms": lambda c: ref.galore_precond_ref(
+                c["g"], c["basis"], c["m"], c["v"], c1=c1, c2=c2,
+                side=c["side"], project_back=False),
+            "library_ms": None}, sets))
+        emit(rows[-1])
+        del sets
+    sets = [_precond_case(gen, (24,), 2816, 1024) for _ in range(2)]
+    for c in sets:
+        c["w"] = (0.02 * torch.randn(c["g"].shape, generator=gen,
+                                     device="cuda")).to(torch.bfloat16)
+    c = sets[0]
+    b_ms, b_by = _bound(
+        4 * (c["g"].numel() + c["basis"].numel() + 4 * c["m"].numel())
+        + 2 * 2 * c["w"].numel(),
+        [(4.0 * c["g"].numel() * TRAIN_R, PEAK_FP32)])
+    row = {"phase": "train_times", "kernel": "galore_adamw_step",
+           "card": card, "w": list(c["w"].shape), "w_dtype": "bfloat16",
+           "bound_ms": b_ms, "bound_by": b_by, "library": "no single call"}
+    rows.append(_timed(row, {
+        "ms": lambda c: ga.galore_adamw_step(
+            c["w"], c["g"], c["basis"], c["m"], c["v"], 3, side=c["side"]),
+        "plain_ms": lambda c: ref.galore_adamw_ref(
+            c["w"], c["g"], c["basis"], c["m"], c["v"], c1=c1, c2=c2,
+            side=c["side"]),
+        "library_ms": None}, sets))
+    emit(rows[-1])
+    del sets
+    for lead in ((4, 24, CLIENTS), (24, CLIENTS), (2, 24, CLIENTS)):
+        sets = [_spd_case(gen, lead, TRAIN_R) for _ in range(2)]
+        n, batch = TRAIN_R, int(np.prod(lead))
+        m_ = n + (n & 1)
+        steps = 12 * (m_ - 1)
+        pairs = m_ // 2
+        flops = batch * steps * (3 * 6 * n * pairs + 3 * n * n)
+        b_ms, b_by = _bound(4 * batch * (2 * n * n + n),
+                            [(flops, PEAK_FP32)])
+        row = {"phase": "train_times", "kernel": "jacobi_eigh",
+               "card": card, "a": list(lead) + [n, n], "bound_ms": b_ms,
+               "bound_by": b_by, "library": "torch.linalg.eigh"}
+        rows.append(_timed(row, {
+            "ms": lambda a: be.jacobi_eigh(a),
+            "plain_ms": lambda a: ref.jacobi_eigh_ref(a),
+            "library_ms": lambda a: torch.linalg.eigh(a)}, sets,
+            no_graph=("library_ms",)))       # eigh checks its info on host
+        emit(rows[-1])
+        del sets
+    return rows
+
+
+def _sum_rows(rows, kernel, weight=lambda r: 1):
+    picked = [r for r in rows if r["kernel"] == kernel]
+    out = {}
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
+                "device_plain_ms", "device_library_ms"):
+        vals = [r.get(key) for r in picked]
+        out[key] = (None if any(v is None for v in vals)
+                    else sum(weight(r) * v for r, v in zip(picked, vals)))
+    out["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes"
+                                      for r in picked) else "operations")
+    return out
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -426,19 +987,34 @@ def main(argv=None) -> int:
     phase_build()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
+
+    # serving path
     max_err, checked = phase_kernel_checks(gen)
     cfg, served, launches = phase_serve(args.seed, card, checked)
     phase_parity(cfg, served, args.seed)
     del served
     torch.cuda.empty_cache()
+
+    # training path
+    train_checked = phase_train_kernel_checks(gen)
+    rounds, snaps, train_launches = phase_train(args.seed, card,
+                                                train_checked)
+    phase_train_parity(args.seed, rounds, snaps)
+    del snaps
+    torch.cuda.empty_cache()
+
     rows = phase_times(gen, card)
+    train_rows = phase_train_times(gen, card)
 
     decode = [r for r in rows if r["shape"] == "decode"]
     per_layer = {k: sum(LAYER_MIX[(r["m"], r["n"])] * r[k] for r in decode)
                  for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                            "device_ms", "device_plain_ms",
                            "device_library_ms")}
-    emit({"kernels": [{
+    timing = ("ms: CUDA events over back-to-back eager calls (host overhead "
+              "included); device_ms: the same calls replayed from a CUDA "
+              "graph")
+    kernels = [{
         "name": "lowrank_linear_batched", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lowrank_linear_batched.cu",
         "replaces": "src/repro/kernels/lowrank_linear.py:140",
@@ -452,11 +1028,45 @@ def main(argv=None) -> int:
         "device_library_ms": per_layer["device_library_ms"],
         "at": "one qwen1.5-0.5b layer of one decode step: 4x(1024x1024) + "
               "2x(1024x2816) + 1x(2816x1024), B=8, t=1, G=8, r=16, bf16; "
-              "ms: CUDA events over back-to-back eager calls (host "
-              "overhead included); device_ms: the same calls replayed "
-              "from a CUDA graph; library_ms is torch.matmul of the base "
+              + timing + "; library_ms is torch.matmul of the base "
               "products alone",
-        "card": card}]})
+        "card": card}]
+    train_entries = [
+        ("lowrank_linear", "src/repro_torch/kernels/csrc/lowrank_linear.cu",
+         "src/repro/kernels/lowrank_linear.py:82",
+         lambda r: r["per_layer"],
+         "one qwen1.5-0.5b layer of one lift-free training forward: "
+         "4x(1024x1024) + 2x(1024x2816) + 1x(2816x1024), x (4, 128, m) "
+         "bf16, r=8; library_ms is torch.matmul of the base products "
+         "alone"),
+        ("galore_precond_step", "src/repro_torch/kernels/csrc/galore_adamw.cu",
+         "src/repro/kernels/galore_adamw.py:189", lambda r: 1,
+         "one client's round-0 local step: the three shape buckets "
+         "(4,24,1024,1024) + (2,24,1024,2816) + (1,24,2816,1024) fp32, r=8, "
+         "project_back=False; no single library call computes it"),
+        ("galore_adamw_step", "src/repro_torch/kernels/csrc/galore_adamw.cu",
+         "src/repro/kernels/galore_adamw.py:145", lambda r: 1,
+         "not on the path (tests only in the reference): w (24,2816,1024) "
+         "bf16, g fp32, r=8; no single library call computes it"),
+        ("jacobi_eigh", "src/repro_torch/kernels/csrc/batched_eigh.cu",
+         "src/repro/kernels/batched_eigh.py:133", lambda r: 1,
+         "one 𝒮 of the round: Phase-1 Grams (4,24,4,8,8) + (24,4,8,8) + "
+         "(2,24,4,8,8); library_ms is torch.linalg.eigh on the same "
+         "stacks"),
+    ]
+    for name, source, replaces, weight, at in train_entries:
+        agg = _sum_rows(train_rows, name, weight)
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": train_launches[name],
+            "max_abs_err": train_checked[name][0], "ms": agg["ms"],
+            "plain_ms": agg["plain_ms"], "bound_ms": agg["bound_ms"],
+            "bound_by": agg["bound_by"], "library_ms": agg["library_ms"],
+            "device_ms": agg["device_ms"],
+            "device_plain_ms": agg["device_plain_ms"],
+            "device_library_ms": agg["device_library_ms"],
+            "at": at + "; " + timing, "card": card})
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -7,9 +7,11 @@ points run on the card unless the caller asks for the CPU
 hand-written kernel or raises, and on a CPU tensor it runs the kernel's
 plain PyTorch version.
 
-Slice 1 (this tree): multi-tenant serving of the dense family
-(``launch.serve``) with the batched heterogeneous-adapter kernel
-(``kernels.lowrank_linear``, CUDA for sm_90a).
+Slice 1: multi-tenant serving of the dense family (``launch.serve``) with
+the batched heterogeneous-adapter kernel. Slice 2: the FedGaLore round
+(``core.fed.FedEngine`` for the GaLore methods) with the lift-free
+low-rank apply, the fused GaLore step and the batched Jacobi eigensolver.
+Every kernel is CUDA C++ for sm_90a (``kernels/csrc``).
 """
 import torch
 

@@ -1,2 +1,2 @@
-"""Host-side federated pieces the serving slice needs: the projection side
-rule, shape buckets, the target split and the client-state store."""
+"""The federated core: projectors, GaLoreAdamW, factored aggregation and
+state sync, AJIVE, the FedGaLore engine, and the client-state store."""

@@ -1,0 +1,157 @@
+"""State synchronization protocols 𝒮 in projected coordinates (port of the
+factored paths of ``repro/core/state_sync.py``).
+
+Inputs are client-stacked projected second moments ṽ (leading client
+axis, further leading dims a batch) and, for heterogeneous rounds, the
+per-client bases. Protocols:
+
+  avg      — weighted average of ṽ;
+  avg_svd  — average then rank-r SVD re-projection (the identity on a
+             shared-basis rank-≤r lift, so it equals avg there);
+  ajive    — the paper's protocol (``core.ajive``).
+
+Shared-basis rounds sync directly on ṽ (:func:`sync_block_synced_factored`);
+the adaptive round 0, whose clients refreshed onto their own bases, closes
+the lift → sync → re-project-onto-client-0 round trip over r×r transfer
+Grams (:func:`sync_block_hetero_factored`). :func:`map_sync_leaves` runs
+one batched program per shape bucket. The dense lift oracles and the
+robust reductions are not ported (ROADMAP Queue 1 item 10).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import projector as proj
+from .ajive import (_inv_sqrt_rank_safe, _no_robust, ajive_sync_factored,
+                    ajive_sync_hetero_factored, normalize_weights)
+from .galore import bucket_by_shape
+
+
+def sync_block_synced_factored(protocol: str, v_stack, side: str,
+                               weights=None, rank: Optional[int] = None,
+                               exclude_zero_weights: bool = False,
+                               robust: str = "none", **robust_kw):
+    """Run protocol 𝒮 on shared-basis projected moments ``v_stack`` (C,
+    *batch, ·, ·): returns the synced state on the round-k basis, or None
+    for 'none'. ``exclude_zero_weights`` drops zero-weight clients from
+    the AJIVE joint-basis estimate."""
+    _no_robust(robust)
+    if protocol == "none":
+        return None
+    if protocol in ("avg", "avg_svd"):
+        w = normalize_weights(weights, v_stack.shape[0],
+                              device=v_stack.device)
+        return torch.einsum("c,c...->...", w, v_stack.float())
+    if protocol == "ajive":
+        r = rank if rank is not None else (
+            v_stack.shape[-1] if side == proj.RIGHT else v_stack.shape[-2])
+        return ajive_sync_factored(v_stack, rank=r, weights=weights,
+                                   side=side,
+                                   exclude_zero_weights=exclude_zero_weights)
+    raise ValueError(protocol)
+
+
+# ------------------------------------------- heterogeneous-basis factored --
+
+def transfer_grams(b_stack):
+    """Per-client r×r basis-change transfers ``T_i = Q_iᵀ Q_0`` onto the
+    client-0 basis: (C, *batch, dim, r) -> (C, *batch, r, r)."""
+    b32 = b_stack.float()
+    return torch.einsum("c...dr,...ds->c...rs", b32, b32[0])
+
+
+def _gram_orth(gram):
+    """Rank-safe orthonormalization of a factor ``X`` from its Gram ``XᵀX``:
+    (coeff, rfac) with ``Q = X @ coeff`` orthonormal (null directions
+    zeroed) and ``X = Q @ rfac``."""
+    lam, vec = torch.linalg.eigh(gram)
+    lam = torch.clamp(torch.flip(lam, [-1]), min=0.0)
+    vec = torch.flip(vec, [-1])
+    coeff = vec * _inv_sqrt_rank_safe(lam)[..., None, :]
+    rfac = (vec * torch.sqrt(lam)[..., None, :]).mT
+    return coeff, rfac
+
+
+def _hetero_avg_svd(v32, b32, w, rank: int, side: str):
+    """Rank-``rank`` SVD of the weighted average of heterogeneously lifted
+    views, on the client-0 basis, through the two skinny factors of
+    ``A = Σ wᵢ lift(ṽ^i, Q_i)`` and their (C·r)² Grams — the dense (m, n)
+    average is never formed. ``v32`` (*batch, C, ·, ·), ``b32`` (*batch, C,
+    dim, r)."""
+    c, r = v32.shape[-3], b32.shape[-1]
+    lead = v32.shape[:-3]
+    t_stack = torch.einsum("...cdr,...ds->...crs", b32,
+                           b32[..., 0, :, :]).reshape(lead + (c * r, r))
+    wv = w[:, None, None] * v32
+    chat = b32.movedim(-3, -2).reshape(lead + (b32.shape[-2], c * r))
+    cc, rc = _gram_orth(chat.mT @ chat)
+    if side == proj.RIGHT:
+        # A = Û Ĉᵀ, Û = [wᵢ ṽ^i] (m, C·r), Ĉ = [Q_i] (n, C·r)
+        uhat = wv.movedim(-3, -2).reshape(lead + (v32.shape[-2], c * r))
+        cu, ru = _gram_orth(uhat.mT @ uhat)
+        p, s, wt = torch.linalg.svd(ru @ rc.mT)
+        left = uhat @ (cu @ p[..., :rank])
+        right = wt[..., :rank, :] @ (cc.mT @ t_stack)
+        return (left * s[..., None, :rank]) @ right
+    # A = Ĉ V̂, Ĉ = [Q_i] (m, C·r), V̂ = [wᵢ ṽ^i] stacked rows (C·r, n)
+    vhat = wv.reshape(lead + (c * r, v32.shape[-1]))
+    cv, rv = _gram_orth(vhat @ vhat.mT)
+    p, s, wt = torch.linalg.svd(rc @ rv.mT)
+    left = t_stack.mT @ (cc @ p[..., :rank])
+    right = (wt[..., :rank, :] @ cv.mT) @ vhat
+    return (left * s[..., None, :rank]) @ right
+
+
+def sync_block_hetero_factored(protocol: str, v_stack, b_stack, side: str,
+                               weights=None, rank: Optional[int] = None,
+                               exclude_zero_weights: bool = False,
+                               robust: str = "none", **robust_kw):
+    """Factored 𝒮 for heterogeneous client bases (the adaptive round 0):
+    ``v_stack`` (C, *batch, ·, ·), ``b_stack`` (C, *batch, dim, r). Returns
+    the synced state in projected shape on the client-0 basis, or None for
+    'none'."""
+    _no_robust(robust)
+    if protocol == "none":
+        return None
+    r = b_stack.shape[-1]
+    rank = rank if rank is not None else r
+    w = normalize_weights(weights, v_stack.shape[0], device=v_stack.device)
+    if protocol == "ajive":
+        return ajive_sync_hetero_factored(
+            v_stack, b_stack, rank, weights, side,
+            exclude_zero_weights=exclude_zero_weights)
+    v32, b32 = v_stack.float(), b_stack.float()
+    if protocol == "avg":
+        t = transfer_grams(b32)                          # (C, *B, r, r)
+        if side == proj.RIGHT:
+            return torch.einsum("c,c...mr,c...rs->...ms", w, v32, t)
+        return torch.einsum("c,c...rs,c...rn->...sn", w, t, v32)
+    if protocol == "avg_svd":
+        return _hetero_avg_svd(v32.movedim(0, -3), b32.movedim(0, -3), w,
+                               rank, side)
+    raise ValueError(protocol)
+
+
+def map_sync_leaves(leaf_fn, v_leaves, b_leaves):
+    """Apply ``leaf_fn(v_stack, b_stack) -> synced`` over parallel per-leaf
+    lists of client-stacked (C, ·) moments and bases, one batched program
+    per shape bucket: the leaves of a bucket stack along a new axis after
+    the client axis, so the bucket's small eigensolves run as one batch.
+    ``None`` v-leaves (non-adapted blocks) pass through as ``None``."""
+    out = [None] * len(v_leaves)
+    keys = [None if v is None else
+            (tuple(v.shape), str(v.dtype), tuple(b.shape), str(b.dtype))
+            for v, b in zip(v_leaves, b_leaves)]
+    buckets, _ = bucket_by_shape(keys)
+    for _, idxs in buckets:
+        if len(idxs) == 1:
+            out[idxs[0]] = leaf_fn(v_leaves[idxs[0]], b_leaves[idxs[0]])
+            continue
+        vs = torch.stack([v_leaves[i] for i in idxs], dim=1)
+        bs = torch.stack([b_leaves[i] for i in idxs], dim=1)
+        res = leaf_fn(vs, bs)
+        for j, i in enumerate(idxs):
+            out[i] = res[j]
+    return out

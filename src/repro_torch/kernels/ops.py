@@ -3,10 +3,9 @@ CPU tensors take its plain PyTorch version (port of
 ``repro/kernels/ops.py``).
 
 The choice follows the tensors' device, never a failure: a kernel that
-does not build or launch raises. :func:`lowrank_kernel_override` (the
-counterpart of JAX's ``layers.lowrank_pallas_override``) runs the plain
-version on the card too, so a caller can compare the kernel against it;
-it is never the default.
+does not build or launch raises. :func:`plain_kernels` runs every plain
+version on the card too, so a caller can compare the kernels against
+them; it is never the default.
 """
 from __future__ import annotations
 
@@ -14,20 +13,49 @@ import contextlib
 
 import torch
 
+from . import batched_eigh as _eigh
+from . import galore_adamw as _galore
 from . import lowrank_linear as _ll
-from .ref import lowrank_linear_batched_ref
+from .ref import (galore_adamw_ref, galore_precond_ref, jacobi_eigh_ref,
+                  lowrank_linear_batched_ref, lowrank_linear_ref)
 
-_PLAIN = [0]   # depth of open lowrank_kernel_override() contexts
+MAX_JACOBI_DIM = _eigh.MAX_JACOBI_DIM
+_PLAIN = [0]   # depth of open plain_kernels() contexts
 
 
 @contextlib.contextmanager
-def lowrank_kernel_override():
-    """Run the plain version in place of the kernel, on any device."""
+def plain_kernels():
+    """Run every kernel's plain version in its place, on any device."""
     _PLAIN[0] += 1
     try:
         yield
     finally:
         _PLAIN[0] -= 1
+
+
+def _kernel(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda" and not _PLAIN[0]
+
+
+def _one_device(name, *tensors):
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"{name} operands are on mixed devices: "
+                         f"{sorted(str(d) for d in devices)}")
+
+
+def lowrank_linear(x, w, basis, rt, scale, *, side=None):
+    """``y = scale·(x @ w) + split-matmul(x, basis, rt)`` for one factored
+    block — see ``kernels.lowrank_linear``. ``scale`` is a float or a
+    one-value tensor; factors are taken as fp32."""
+    side = side or _ll.infer_side(w.shape, basis.shape, rt.shape)
+    if not _kernel(x):
+        return lowrank_linear_ref(x, w, basis, rt, scale, side=side)
+    scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+    _one_device("lowrank_linear", x, w, basis, rt, scale)
+    return _ll.lowrank_linear(
+        x.contiguous(), w.contiguous(), basis.float().contiguous(),
+        rt.float().contiguous(), scale.reshape(()).contiguous(), side=side)
 
 
 def lowrank_linear_batched(x, w, bases, rts, scales, ids, *, side=None):
@@ -37,12 +65,9 @@ def lowrank_linear_batched(x, w, bases, rts, scales, ids, *, side=None):
     All operands must sit on one device. Tables and scales are taken as
     fp32 and ids as int32 (no copy when they already are).
     """
-    devices = {t.device for t in (x, w, bases, rts, scales, ids)}
-    if len(devices) != 1:
-        raise ValueError("lowrank_linear_batched operands are on mixed "
-                         f"devices: {sorted(str(d) for d in devices)}")
+    _one_device("lowrank_linear_batched", x, w, bases, rts, scales, ids)
     side = side or _ll.infer_side(w.shape, bases.shape[1:], rts.shape[1:])
-    if x.device.type != "cuda" or _PLAIN[0]:
+    if not _kernel(x):
         return lowrank_linear_batched_ref(x, w, bases, rts, scales, ids,
                                           side=side)
     return _ll.lowrank_linear_batched(
@@ -50,3 +75,78 @@ def lowrank_linear_batched(x, w, bases, rts, scales, ids, *, side=None):
         rts.to(torch.float32).contiguous(),
         scales.to(torch.float32).contiguous(),
         ids.to(torch.int32).contiguous(), side=side)
+
+
+def galore_precond_step(g, basis, m, v, count, *, side=None, b1=0.9,
+                        b2=0.999, eps=1e-8, bias_correction=True,
+                        project_back=True):
+    """Fused project → Adam → project-back on a stack of blocks; returns
+    (u, m', v') — ``u`` fp32 (…, M, N), or ũ in the moment shape when
+    ``project_back`` is False. ``count`` is the post-increment step."""
+    _one_device("galore_precond_step", g, basis, m, v)
+    side = side or _galore.infer_side(g.shape, basis.shape, m.shape)
+    if not _kernel(g):
+        c1, c2 = _galore.bias_corrections(count, b1, b2, bias_correction)
+        return galore_precond_ref(g, basis, m, v, c1=c1, c2=c2, side=side,
+                                  b1=b1, b2=b2, eps=eps,
+                                  project_back=project_back)
+    return _galore.galore_precond_step(
+        g.float().contiguous(), basis.float().contiguous(),
+        m.float().contiguous(), v.float().contiguous(), count, side=side,
+        b1=b1, b2=b2, eps=eps, bias_correction=bias_correction,
+        project_back=project_back)
+
+
+def galore_adamw_step(w, g, basis, m, v, count, *, side=None, b1=0.9,
+                      b2=0.999, eps=1e-8, lr=1e-3, weight_decay=0.0,
+                      bias_correction=True):
+    """The fused GaLoreAdamW step; returns (w', m', v')."""
+    _one_device("galore_adamw_step", w, g, basis, m, v)
+    side = side or _galore.infer_side(w.shape, basis.shape, m.shape)
+    if not _kernel(g):
+        c1, c2 = _galore.bias_corrections(count, b1, b2, bias_correction)
+        return galore_adamw_ref(w, g, basis, m, v, c1=c1, c2=c2, side=side,
+                                b1=b1, b2=b2, eps=eps, lr=lr,
+                                weight_decay=weight_decay)
+    return _galore.galore_adamw_step(
+        w.contiguous(), g.float().contiguous(), basis.float().contiguous(),
+        m.float().contiguous(), v.float().contiguous(), count, side=side,
+        b1=b1, b2=b2, eps=eps, lr=lr, weight_decay=weight_decay,
+        bias_correction=bias_correction)
+
+
+def batched_small_eigh(a, *, mask=None, force=None, sweeps=12):
+    """Eigendecomposition of a batched symmetric stack ``(..., n, n)``;
+    returns ``(lam, vec)`` ascending.
+
+    Routing, as the reference's: the Jacobi kernel for CUDA tensors with
+    n ≤ 64; ``torch.linalg.eigh`` (LAPACK) on the CPU, as JAX uses LAPACK
+    there, and for n > 64. ``force`` pins a route for tests:
+    ``"jacobi"`` (the kernel on the card, its plain version on the CPU)
+    or ``"lapack"``.
+
+    ``mask`` (bool, shaped like the batch dims) solves masked entries as
+    the identity and returns their eigenvalues as exact zeros, so their
+    payload never reaches the solver; an all-true mask is the unmasked
+    solve.
+    """
+    n = a.shape[-1]
+    if mask is not None:
+        sel = torch.as_tensor(mask, dtype=torch.bool,
+                              device=a.device)[..., None, None]
+        a = torch.where(sel, a, torch.eye(n, dtype=a.dtype, device=a.device))
+    use_jacobi = (force == "jacobi" or
+                  (force is None and a.device.type == "cuda"
+                   and n <= MAX_JACOBI_DIM))
+    if not use_jacobi:
+        lam, vec = torch.linalg.eigh(a)
+    elif _kernel(a):
+        lam, vec = _eigh.jacobi_eigh(a.float(), sweeps=sweeps)
+    else:
+        lam, vec = jacobi_eigh_ref(a, sweeps=sweeps)
+    if mask is not None:
+        lam = torch.where(torch.as_tensor(mask, dtype=torch.bool,
+                                          device=a.device)[..., None],
+                          lam, torch.zeros((), dtype=lam.dtype,
+                                           device=lam.device))
+    return lam, vec

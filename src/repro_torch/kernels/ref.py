@@ -3,6 +3,8 @@
 ``chip_smoke.py`` holds each CUDA kernel against them on the card."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -30,3 +32,117 @@ def lowrank_linear_batched_ref(x, w, bases, rts, scales, ids, *, side):
                              torch.einsum("btm,bmr->btr", x3, bg), rg)
     y = (base + delta).to(torch.result_type(x, w))
     return y[:, 0, :] if squeeze_t else y
+
+
+def lowrank_linear_ref(x, w, basis, rt, scale, *, side):
+    """Lift-free low-rank linear apply for one factored block.
+
+    x (..., t, m); w (m, n); right: basis (n, r), rt (m, r) —
+    ``y = scale·(x@w) + (x@rt)@basisᵀ``; left: basis (m, r), rt (r, n) —
+    ``y = scale·(x@w) + (x@basis)@rt``. ``scale`` is a float or a 0-d
+    tensor. fp32 accumulation; result in ``torch.result_type(x, w)``.
+    """
+    x32 = x.float()
+    base = scale * (x32 @ w.float())
+    b32, r32 = basis.float(), rt.float()
+    delta = (x32 @ r32) @ b32.mT if side == "right" else (x32 @ b32) @ r32
+    return (base + delta).to(torch.result_type(x, w))
+
+
+def _adam_dir(gt, m, v, *, b1, b2, eps, c1, c2):
+    m = b1 * m + (1 - b1) * gt
+    v = b2 * v + (1 - b2) * gt * gt
+    return m, v, (m / c1) / (torch.sqrt(v / c2) + eps)
+
+
+def galore_precond_ref(g, basis, m, v, *, c1, c2, side, b1=0.9, b2=0.999,
+                       eps=1e-8, project_back=True):
+    """Project → Adam → (project back) for a stack of blocks, both sides.
+
+    g (..., M, N); right: basis (..., N, r), m/v (..., M, r); left: basis
+    (..., M, r), m/v (..., r, N). ``c1``/``c2`` are the bias corrections
+    ``1 - b^count`` (1.0 without correction). Returns (u, m', v') with u
+    (..., M, N) fp32, or ũ in the moment shape when ``project_back`` is
+    False."""
+    g32, b32 = g.float(), basis.float()
+    gt = g32 @ b32 if side == "right" else b32.mT @ g32
+    m, v, ut = _adam_dir(gt, m, v, b1=b1, b2=b2, eps=eps, c1=c1, c2=c2)
+    if not project_back:
+        return ut, m, v
+    return (ut @ b32.mT if side == "right" else b32 @ ut), m, v
+
+
+def galore_adamw_ref(w, g, basis, m, v, *, c1, c2, side, b1=0.9, b2=0.999,
+                     eps=1e-8, lr=1e-3, weight_decay=0.0):
+    """The fused GaLoreAdamW step, both sides: the lifted preconditioned
+    update ``u`` applied as ``w ← w − lr·u − lr·λ·w`` in fp32. Returns
+    (w' in w's dtype, m', v')."""
+    u, m, v = galore_precond_ref(g, basis, m, v, c1=c1, c2=c2, side=side,
+                                 b1=b1, b2=b2, eps=eps)
+    w32 = w.float()
+    return (w32 - lr * u - lr * weight_decay * w32).to(w.dtype), m, v
+
+
+def round_robin_pairs(n: int):
+    """The parallel-Jacobi schedule: (n_steps, n_pairs) int lists of
+    disjoint (p, q) pairs covering every unordered pair once per sweep
+    (circle method; odd n plays against a phantom seat whose pairs are
+    dropped)."""
+    m = n if n % 2 == 0 else n + 1
+    seats = list(range(m))
+    steps_p, steps_q = [], []
+    for _ in range(m - 1):
+        ps, qs = [], []
+        for i in range(m // 2):
+            a, b = seats[i], seats[m - 1 - i]
+            if a < n and b < n:
+                ps.append(min(a, b))
+                qs.append(max(a, b))
+        steps_p.append(ps)
+        steps_q.append(qs)
+        seats = [seats[0]] + [seats[-1]] + seats[1:-1]
+    return steps_p, steps_q
+
+
+@functools.lru_cache(maxsize=None)
+def _schedule(n: int, device: torch.device):
+    """The round-robin schedule as index tensors on ``device``, built once
+    per (n, device) so the solve itself moves nothing from the host."""
+    steps_p, steps_q = round_robin_pairs(n)
+    return [(torch.tensor(p, dtype=torch.long, device=device),
+             torch.tensor(q, dtype=torch.long, device=device))
+            for p, q in zip(steps_p, steps_q)]
+
+
+def jacobi_eigh_ref(a, *, sweeps: int = 12):
+    """Parallel-order cyclic Jacobi on a (..., n, n) symmetric stack, in
+    plain tensor ops: the reference kernel's arithmetic (θ = ½·atan2(2a_pq,
+    a_qq − a_pp), pinned to 0 where a_pq = 0; J_pp = J_qq = 1 + (c − 1);
+    A ← Jᵀ(AJ), V ← VJ, symmetry re-pinned every step), then eigenvalues
+    ascending (stable) with their columns."""
+    n = a.shape[-1]
+    lead = a.shape[:-2]
+    a = a.reshape((-1, n, n)).float().clone()
+    v = torch.eye(n, dtype=torch.float32, device=a.device).repeat(
+        a.shape[0], 1, 1)
+    idx = _schedule(n, a.device)
+    for it in range(sweeps * len(idx) if n > 1 else 0):
+        p, q = idx[it % len(idx)]
+        app, aqq, apq = a[:, p, p], a[:, q, q], a[:, p, q]
+        theta = 0.5 * torch.atan2(2.0 * apq, aqq - app)
+        theta = torch.where(apq == 0.0, 0.0, theta)
+        c = (1.0 + (torch.cos(theta) - 1.0))[:, None, :]
+        s = torch.sin(theta)[:, None, :]
+        for x in (a, v):                         # columns: X <- X J
+            xp, xq = x[:, :, p], x[:, :, q]
+            x[:, :, p] = xp * c - xq * s
+            x[:, :, q] = xp * s + xq * c
+        c, s = c.mT, s.mT
+        ap, aq = a[:, p, :], a[:, q, :]          # rows: A <- J^T A
+        a[:, p, :] = c * ap - s * aq
+        a[:, q, :] = s * ap + c * aq
+        a = 0.5 * (a + a.mT)
+    lam, order = torch.sort(torch.diagonal(a, dim1=-2, dim2=-1), dim=-1,
+                            stable=True)
+    vec = torch.gather(v, 2, order[:, None, :].expand(-1, n, -1))
+    return lam.reshape(lead + (n,)), vec.reshape(lead + (n, n))

@@ -1,5 +1,6 @@
 """Config-driven decoder, dense family (port of ``repro/models/model.py``:
-``init_params``, ``prefill``, ``decode_step`` and the decode state).
+``init_params``, ``forward``, ``loss_fn``, ``prefill``, ``decode_step`` and
+the decode state).
 
 Params are the JAX tree: ``{"embed": {"w"}, "blocks": [period × stacked
 per-layer dicts with a leading (n_blocks,) axis], "final_norm": {...}}``.
@@ -8,7 +9,9 @@ indexes every stacked leaf ``[i]`` (``MultiAdapterDelta`` fields too):
 dim-0 views of contiguous tensors, no copies. The decode state's caches
 are written in place through those views (``attention.kv_cache_write``),
 so ``prefill`` and ``decode_step`` mutate the state they are given and
-return it with the new position.
+return it with the new position. ``forward`` and ``loss_fn`` are the
+training read: autograd runs through the loop, with no activation
+checkpointing.
 
 Only the dense family (GQA attention + dense MLP, RoPE or no positional
 embedding) is ported; other families raise ``NotImplementedError``.
@@ -100,6 +103,44 @@ def _ffn(lp, cfg: ArchConfig, h):
     if cfg.mlp_kind == "glu":
         return h + glu_mlp(lp["mlp"], x, cfg.act)
     return h + mlp(lp["mlp"], x, cfg.act)
+
+
+def forward(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor,
+            embeds=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence causal forward. Returns (fp32 logits, moe aux loss —
+    zero for the dense family)."""
+    _check_ported(cfg)
+    if embeds is not None:
+        raise NotImplementedError(
+            "frontend embeddings belong to the vlm/audio families (ROADMAP "
+            "Queue 1 item 11: other model families)")
+    h = _embed(params, cfg, tokens)
+    positions = torch.arange(h.shape[1], device=h.device)
+    for i in range(cfg.n_blocks()):
+        for j in range(cfg.block_period()):
+            lp = _block(params["blocks"][j], i)
+            x = apply_norm(h, lp["norm1"], cfg.norm)
+            out, _ = attn_lib.gqa_forward(
+                lp["attn"], x, positions, attn_chunk=cfg.attn_chunk,
+                **_attn_kwargs(cfg))
+            h = _ffn(lp, cfg, h + out)
+    return _logits(params, cfg, h), torch.zeros((), device=h.device)
+
+
+def loss_fn(params: PyTree, cfg: ArchConfig, batch, aux_coef: float = 0.01
+            ) -> torch.Tensor:
+    """Next-token cross-entropy; labels == -1 are masked."""
+    logits, aux = forward(params, cfg, batch["tokens"], batch.get("embeds"))
+    labels = batch["labels"].long()
+    n_front = logits.shape[1] - labels.shape[1]
+    if n_front:
+        logits = logits[:, n_front:]
+    logp = torch.log_softmax(logits, dim=-1)
+    mask = labels >= 0
+    safe = torch.where(mask, labels, 0)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    ce = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+    return ce + aux_coef * aux
 
 
 # ---------------------------------------------------------------- decode ----

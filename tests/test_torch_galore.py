@@ -1,0 +1,260 @@
+"""Port parity: ``repro_torch.core.galore`` and the fused GaLore kernels'
+plain versions against the JAX package, from the same carried-across
+optimizer state (``models.convert.opt_state_from_jax``).
+
+* ``galore_init`` bases equal JAX's leaf for leaf (≤1e-6: seeded threefry
+  draws and a sign-fixed QR).
+* ``galore_precond_ref`` / ``galore_adamw_ref`` against the Pallas kernels
+  in interpret mode: both sides, stacked 3-D blocks, odd M, both
+  ``project_back`` values, ≤1e-5 relative.
+* ``galore_transform_update`` (dense and ``projected=True``),
+  ``manual_refresh`` and ``factored_adamw_step`` with clipping, ≤1e-5.
+* The carry-across round-trips the state exactly.
+"""
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.configs import smoke_variant as jsmoke
+from repro.core import galore as jgal
+from repro.core.fed import split_trainable as jsplit
+from repro.kernels import galore_adamw as jkern
+from repro.launch.steps import galore_target_fn as jtarget
+from repro.models import model as jmodel
+from repro_torch.core import galore as tgal
+from repro_torch.kernels import galore_adamw as tkern
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.models.convert import (opt_state_from_jax,
+                                        opt_state_to_numpy, params_from_jax)
+from repro_torch.utils import tree
+
+RANK = 4
+LR = 3e-3
+
+
+def _np_tree(x):
+    return jax.tree_util.tree_map(np.asarray, x)
+
+
+def _rel(got, want):
+    want = np.asarray(want)
+    return float(np.max(np.abs(np.asarray(got) - want))
+                 / max(np.max(np.abs(want)), 1e-30))
+
+
+def _jblocks(state):
+    return jax.tree_util.tree_leaves(state.blocks, is_leaf=lambda x: isinstance(
+        x, (jgal.GaloreBlockState, jgal.DenseMoments)))
+
+
+def _tblocks(state):
+    return tree.tree_leaves(state.blocks, is_leaf=tgal._is_block)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    """JAX smoke-qwen trainables, a JAX GaLore optimizer state with random
+    moments at count 2 (as after two steps), the gradients of a third
+    step, and the port's copies of all of it."""
+    cfg = jsmoke(jget_config("qwen1.5-0.5b"))
+    params = jmodel.init_params(jax.random.PRNGKey(0), cfg)
+    jtr, _ = jsplit(params, jtarget(cfg))
+    gcfg = jgal.GaloreConfig(rank=RANK, refresh_every=10 ** 9)
+    tx = jgal.galore_adamw(gcfg, LR, 0.01, seed=0, clip_norm=1.0)
+    rng = np.random.default_rng(0)
+    st = tx.init(jtr)
+    g = jgal.galore_state_of(st)
+    blocks = jax.tree_util.tree_map(
+        lambda b: jgal.GaloreBlockState(
+            basis=b.basis,
+            m=jnp.asarray(0.01 * rng.standard_normal(b.m.shape), jnp.float32),
+            v=jnp.asarray(1e-4 * rng.random(b.v.shape), jnp.float32)),
+        g.blocks, is_leaf=lambda x: isinstance(x, jgal.GaloreBlockState))
+    st = jgal.replace_galore_state(
+        st, g._replace(count=jnp.asarray(2, jnp.int32), blocks=blocks))
+    st = st[:-1] + (st[-1]._replace(count=jnp.asarray(2, jnp.int32)),)
+    grads = jax.tree_util.tree_map(
+        lambda p: jnp.asarray(0.05 * rng.standard_normal(p.shape),
+                              jnp.float32), jtr)
+    ttr = params_from_jax(_np_tree(jtr), "cpu")
+    return dict(jtr=jtr, ttr=ttr, gcfg=gcfg,
+                tcfg=tgal.GaloreConfig(rank=RANK, refresh_every=10 ** 9),
+                jst=st, tst=opt_state_from_jax(_np_tree(st), "cpu"),
+                jg=grads, tg=params_from_jax(_np_tree(grads), "cpu"))
+
+
+def test_galore_init_bases_equal(setup):
+    js = jgal.galore_init(setup["gcfg"], setup["jtr"], seed=3)
+    ts = tgal.galore_init(setup["tcfg"], setup["ttr"], seed=3)
+    jb, tb = _jblocks(js), _tblocks(ts)
+    assert len(jb) == len(tb) == 7
+    for a, b in zip(jb, tb):
+        assert np.max(np.abs(np.asarray(a.basis) - b.basis.numpy())) <= 1e-6
+        assert tuple(a.m.shape) == tuple(b.m.shape)
+
+
+def test_state_round_trip(setup):
+    back = opt_state_to_numpy(setup["tst"])
+    want = _np_tree(setup["jst"])
+    gb, gw = tgal.galore_state_of(back), jgal.galore_state_of(want)
+    assert gb.count == int(gw.count) == 2 and gb.seed == int(gw.seed)
+    for a, b in zip(jax.tree_util.tree_leaves(gw.blocks), tree.tree_leaves(
+            gb.blocks)):
+        assert np.array_equal(a, b)
+    assert [type(s).__name__ for s in back] == [type(s).__name__
+                                               for s in want]
+
+
+@pytest.mark.parametrize("side,m,n", [("right", 37, 24), ("left", 24, 41)])
+@pytest.mark.parametrize("project_back", [True, False])
+def test_precond_ref_matches_pallas(side, m, n, project_back):
+    rng = np.random.default_rng(1)
+    r, lead = 4, (3,)
+    dim = n if side == "right" else m
+    g = rng.standard_normal(lead + (m, n)).astype(np.float32)
+    basis = np.linalg.qr(rng.standard_normal(lead + (dim, r)))[0].astype(
+        np.float32)
+    msh = lead + ((m, r) if side == "right" else (r, n))
+    mom = (0.1 * rng.standard_normal(msh)).astype(np.float32)
+    vel = (0.01 * rng.random(msh)).astype(np.float32)
+    want = jkern.galore_precond_step(
+        *map(jnp.asarray, (g, basis, mom, vel)), 5.0, side=side,
+        block_rows=16, interpret=True, project_back=project_back)
+    c1, c2 = tkern.bias_corrections(5, 0.9, 0.999)
+    got = tref.galore_precond_ref(*map(torch.from_numpy, (g, basis, mom, vel)),
+                                  c1=c1, c2=c2, side=side,
+                                  project_back=project_back)
+    for a, b in zip(want, got):
+        assert tuple(a.shape) == tuple(b.shape)
+        assert _rel(b.numpy(), a) <= 1e-5
+    via_ops = tops.galore_precond_step(
+        *map(torch.from_numpy, (g, basis, mom, vel)), 5,
+        project_back=project_back)
+    for a, b in zip(got, via_ops):
+        assert torch.equal(a, b)
+    assert tkern.galore_precond_step.launches == 0
+
+
+@pytest.mark.parametrize("side,m,n", [("right", 37, 24), ("left", 24, 41)])
+def test_adamw_ref_matches_pallas(side, m, n):
+    rng = np.random.default_rng(2)
+    r = 4
+    dim = n if side == "right" else m
+    w = rng.standard_normal((2, m, n)).astype(np.float32)
+    g = rng.standard_normal((2, m, n)).astype(np.float32)
+    basis = np.linalg.qr(rng.standard_normal((2, dim, r)))[0].astype(
+        np.float32)
+    msh = (2,) + ((m, r) if side == "right" else (r, n))
+    mom = (0.1 * rng.standard_normal(msh)).astype(np.float32)
+    vel = (0.01 * rng.random(msh)).astype(np.float32)
+    want = jkern.galore_adamw_step(*map(jnp.asarray, (w, g, basis, mom, vel)),
+                                   3.0, side=side, lr=1e-2,
+                                   weight_decay=0.1, block_rows=8,
+                                   interpret=True)
+    c1, c2 = tkern.bias_corrections(3, 0.9, 0.999)
+    got = tref.galore_adamw_ref(*map(torch.from_numpy, (w, g, basis, mom,
+                                                        vel)),
+                                c1=c1, c2=c2, side=side, lr=1e-2,
+                                weight_decay=0.1)
+    for a, b in zip(want, got):
+        assert _rel(b.numpy(), a) <= 1e-5
+    via_ops = tops.galore_adamw_step(
+        *map(torch.from_numpy, (w, g, basis, mom, vel)), 3, lr=1e-2,
+        weight_decay=0.1)
+    for a, b in zip(got, via_ops):
+        assert torch.equal(a, b)
+    assert tkern.galore_adamw_step.launches == 0
+
+
+def _compare_states(jstate, tstate, tol=1e-5):
+    for a, b in zip(_jblocks(jgal.galore_state_of(jstate)),
+                    _tblocks(tgal.galore_state_of(tstate))):
+        for fa, fb in zip(a, b):
+            assert _rel(fb.numpy(), fa) <= tol
+
+
+@pytest.mark.parametrize("projected", [False, True])
+def test_transform_update_matches(setup, projected):
+    jg, tg = setup["jg"], setup["tg"]
+    jst = jgal.galore_state_of(setup["jst"])
+    tst = tgal.galore_state_of(setup["tst"])
+    if projected:      # feed both the projected gradients of the dense ones
+        jg = jax.tree_util.tree_map(
+            lambda g, b: jnp.asarray(_proj(np.asarray(g), np.asarray(b))),
+            jg, jgal.extract_bases(jst))
+        tg = params_from_jax(_np_tree(jg), "cpu")
+    ju, jn = jgal.galore_transform_update(setup["gcfg"], jg, jst,
+                                          project_back=True,
+                                          projected=projected)
+    tu, tn = tgal.galore_transform_update(setup["tcfg"], tg, tst,
+                                          project_back=True,
+                                          projected=projected)
+    assert tn.count == int(jn.count) == 3
+    for a, b in zip(jax.tree_util.tree_leaves(ju), tree.tree_leaves(tu)):
+        assert _rel(b.numpy(), a) <= 1e-5
+    _compare_states(jn, tn)
+
+
+def _proj(g, b):
+    m, n = g.shape[-2:]
+    return g @ b if m >= n else np.swapaxes(b, -1, -2) @ g
+
+
+def test_manual_refresh_matches(setup):
+    jst = jgal.galore_state_of(setup["jst"])
+    tst = tgal.galore_state_of(setup["tst"])
+    jn = jgal.manual_refresh(setup["gcfg"], jgal.with_seed(jst, 7), 3)
+    tn = tgal.manual_refresh(setup["tcfg"], tgal.with_seed(tst, 7), 3)
+    _compare_states(jn, tn)
+    assert tgal.maybe_refresh_instep(setup["tcfg"], tst) is tst   # count 2
+
+
+@pytest.mark.parametrize("lift_free", [False, True])
+def test_factored_adamw_step_matches(setup, lift_free):
+    jst, tst = setup["jst"], setup["tst"]
+    jd = jax.tree_util.tree_map(lambda m: 0.01 * jnp.ones_like(m),
+                                jgal.zero_client_deltas(
+                                    jgal.galore_state_of(jst)))
+    td = params_from_jax(_np_tree(jd), "cpu")
+    jg, tg = setup["jg"], setup["tg"]
+    if lift_free:
+        bases = jgal.extract_bases(jgal.galore_state_of(jst))
+        jproj = jax.tree_util.tree_map(
+            lambda g, b: jnp.asarray(_proj(np.asarray(g), np.asarray(b))),
+            jg, bases)
+        jnsq = jax.tree_util.tree_map(
+            lambda g: jnp.sum(g * g, axis=(-2, -1)), jg)
+        jg = jgal.LiftFreeGrads(proj=jproj, nsq=jnsq)
+        tg = tgal.LiftFreeGrads(proj=params_from_jax(_np_tree(jproj), "cpu"),
+                                nsq=params_from_jax(_np_tree(jnsq), "cpu"))
+    jd2, js2, jst2 = jgal.factored_adamw_step(
+        setup["gcfg"], jg, jst, jd, jnp.float32(0.99), lr=LR,
+        weight_decay=0.01, clip_norm=0.5)
+    td2, ts2, tst2 = tgal.factored_adamw_step(
+        setup["tcfg"], tg, tst, td, torch.tensor(0.99), lr=LR,
+        weight_decay=0.01, clip_norm=0.5)
+    assert abs(float(ts2) - float(js2)) <= 1e-7
+    for a, b in zip(jax.tree_util.tree_leaves(jd2), tree.tree_leaves(td2)):
+        assert _rel(b.numpy(), a) <= 1e-5
+    _compare_states(jst2, tst2)
+    assert tst2[-1].count == int(jst2[-1].count)
+
+
+def test_layout_helpers(setup):
+    tst = setup["tst"]
+    g = tgal.galore_state_of(tst)
+    stacked = tgal.stack_opt_states([tst, tst, tst])
+    sg = tgal.galore_state_of(stacked)
+    assert sg.count == g.count and sg.seed == g.seed
+    for a, b in zip(_tblocks(g), _tblocks(sg)):
+        assert b.basis.shape == (3,) + a.basis.shape
+        assert torch.equal(b.v[1], a.v)
+    v = tgal.extract_projected_v(g)
+    back = tgal.with_projected_v(g, tree.tree_map(lambda x: -x, v))
+    assert all(torch.all(b.v == 0) for b in _tblocks(back))
+    assert tgal.with_seed(g, 2 ** 32 + 5).seed == 5

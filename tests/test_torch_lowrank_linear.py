@@ -152,7 +152,7 @@ def test_device_rules():
     with pytest.raises(ValueError, match="mixed devices"):
         tops.lowrank_linear_batched(x, w, bases, rts, scales,
                                     ids.to("meta"))
-    with tops.lowrank_kernel_override():
+    with tops.plain_kernels():
         plain = tops.lowrank_linear_batched(x, w, bases, rts, scales, ids)
     assert torch.equal(plain, tops.lowrank_linear_batched(
         x, w, bases, rts, scales, ids))

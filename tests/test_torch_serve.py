@@ -39,6 +39,17 @@ ARCH = "qwen1.5-0.5b"
 G = 3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The smoke-size tensors gain nothing from torch's intra-op pool, and
+    beside the JAX compiles of parallel test workers its idle threads only
+    compete for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def slice_():
     """(jax cfg, torch cfg, jax base params, jax served, torch served,
@@ -304,10 +315,22 @@ def test_tensor_matmul_defers_to_adapter_leaf():
 
 
 _IMPORT_ALL = """
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 import repro_torch
-for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
-    importlib.import_module(m.name)
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+for name in ("repro_torch.utils.prng", "repro_torch.core.fed",
+             "repro_torch.core.ajive", "repro_torch.core.state_sync",
+             "repro_torch.core.aggregation", "repro_torch.optim.adamw",
+             "repro_torch.kernels.galore_adamw",
+             "repro_torch.kernels.batched_eigh", "repro_torch.data.pipeline"):
+    assert name in names, name
+for name, path in (("chip_smoke", "chip_smoke.py"),
+                   ("quickstart_torch", "examples/quickstart_torch.py")):
+    spec = importlib.util.spec_from_file_location(name, ROOT + "/" + path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len(sys.modules), bad)
@@ -319,7 +342,9 @@ def test_port_imports_neither_jax_nor_repro():
     env = dict(os.environ)
     src = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
     env["PYTHONPATH"] = src
-    res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+    root = os.path.dirname(src)
+    res = subprocess.run([sys.executable, "-c",
+                          f"ROOT = {root!r}\n" + _IMPORT_ALL], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
 
