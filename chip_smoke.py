@@ -3,13 +3,17 @@
   python3 chip_smoke.py [--seed 0]
 
 Builds every CUDA kernel from ``src/repro_torch`` (one ``nvcc`` per source,
-all at once) and drives both paths of the port at the full width of
-qwen1.5-0.5b (bf16, 24 layers, random weights from ``--seed``):
+all at once) and drives the port's three paths at full width (bf16, 24
+layers, random weights from ``--seed``):
 
-* serving: ``SlotServer`` and ``generate`` with 8 heterogeneous adapters
-  through ``lowrank_linear_batched``;
-* training: two FedGaLore rounds through ``FedEngine.run_round`` (4
-  clients, 2 local steps, batch 4 x 128, rank 8) — round 0 through
+* serving qwen1.5-0.5b: ``SlotServer`` and ``generate`` with 8
+  heterogeneous adapters through ``lowrank_linear_batched``;
+* serving rwkv6-1.6b: the same, with the adapters on its eight target
+  projections through ``lowrank_linear_batched`` and the WKV recurrence
+  through ``rwkv6_scan``;
+* training qwen1.5-0.5b: two FedGaLore rounds through
+  ``FedEngine.run_round`` (4 clients, 2 local steps, batch 4 x 128, rank
+  8) — round 0 through
   ``galore_precond_step`` and ``jacobi_eigh``, round 1 through
   ``lowrank_linear`` and ``jacobi_eigh``.
 
@@ -50,6 +54,23 @@ SHAPES = [(1024, 1024), (1024, 2816), (2816, 1024)]   # (m, n) of the path
 # (1024,2816), w_down @ (2816,1024)
 LAYER_MIX = {(1024, 1024): 4, (1024, 2816): 2, (2816, 1024): 1}
 PARITY_BOUND = 5e-2     # max |logit diff| / max |logit|, bf16 end to end
+# Kernel launches per forward, stated before the run: qwen1.5-0.5b adapts
+# 7 projections per layer; rwkv6-1.6b adapts 8 (time-mix wr wk wv wg wo,
+# channel-mix wk wv wr) and runs the WKV recurrence once per layer.
+QWEN_PER_FORWARD = {"lowrank_linear_batched": 7 * 24}
+RWKV_PER_FORWARD = {"lowrank_linear_batched": 8 * 24, "rwkv6_scan": 24}
+
+# rwkv6-1.6b: (m, n) of its adapted projections and their count per layer
+# (time-mix 5 x (2048, 2048), channel-mix wr (2048, 2048), wk (2048, 7168),
+# wv (7168, 2048)); 32 heads of 64.
+RWKV_SHAPES = [(2048, 2048), (2048, 7168), (7168, 2048)]
+RWKV_H, RWKV_D = 32, 64
+# rwkv6_scan against its plain version, set before the first run: the final
+# state and fp32 y within 1e-5 of their scale; bf16 y within one bf16 ulp of
+# the output scale (the fp32 result is rounded once, and a last-place
+# difference can cross a rounding boundary). The two now share one
+# arithmetic order and are expected to agree bit for bit (reported).
+SCAN_TOL = 1e-5
 
 # The training path: two FedGaLore rounds at full width.
 CLIENTS, LOCAL_STEPS, TRAIN_B, TRAIN_L, TRAIN_R = 4, 2, 4, 128, 8
@@ -109,7 +130,7 @@ def ptxas_summary(log: str):
             name = m.group(1)
             short = re.search(r"(shrink_kernel|gemm_kernel|"
                               r"reduce_epilogue_kernel|right_kernel|"
-                              r"left_kernel)I(.*?)EEv", name)
+                              r"left_kernel|wkv6_kernel)I(.*?)EEv", name)
             plain = re.search(r"(jacobi_kernel)", name)
             cur = {"function": (short.group(1) + "<" + short.group(2) + ">")
                    if short else plain.group(1) if plain else name}
@@ -227,19 +248,20 @@ def phase_build():
               "ptxas": ptxas_summary(_build.PTXAS_LOG.get(name, ""))})
 
 
-def phase_kernel_checks(gen):
-    """The kernel against the plain version at the path's shapes: decode
-    (B, 1) of SlotServer and generate, prefill (B, PROMPT) of generate and
-    (1, PROMPT) of SlotServer's per-request admission, ragged tails, fp32
-    and 2-D x. Returns the worst error and the keys checked."""
+def phase_kernel_checks(gen, shapes):
+    """The kernel against the plain version at a serving path's (m, n)
+    ``shapes`` (square, wide, tall): decode (B, 1) of SlotServer and
+    generate, prefill (B, PROMPT) of generate and (1, PROMPT) of
+    SlotServer's per-request admission, ragged tails, fp32 and 2-D x.
+    Returns the worst error and the keys checked."""
     from repro_torch.kernels import lowrank_linear as ll
     from repro_torch.kernels.ref import lowrank_linear_batched_ref
     ids = [0, 3, 3, 7, 1, 0, 5, 2]          # duplicates, not every adapter
-    cases = [(b, m, n, t, torch.bfloat16, False) for (m, n) in SHAPES
+    cases = [(b, m, n, t, torch.bfloat16, False) for (m, n) in shapes
              for b, t in ((B, 1), (B, 100), (B, PROMPT), (1, PROMPT),
                           (1, 100))]
-    cases += [(B, 1024, 2816, 100, torch.float32, False),
-              (B, 2816, 1024, 1, torch.bfloat16, True)]     # 2-D x
+    cases += [(B, *shapes[1], 100, torch.float32, False),
+              (B, *shapes[2], 1, torch.bfloat16, True)]     # 2-D x
     worst, checked = 0.0, set()
     for b, m, n, t, dtype, two_d in cases:
         c = make_case(gen, m, n, t, dtype, ids[-b:], two_d)
@@ -304,51 +326,71 @@ def _batched_key(x, w, *args, **kw):
     return case_key(x, w)
 
 
-def phase_serve(seed, card, checked):
-    """The port's main path at full width: SlotServer serves 16 requests,
-    then generate runs once; every projection goes through the kernel."""
+def _scan_key(r, k, v, w, u, s0=None, *, chunk=128):
+    """(B, L, H, D, r/k/v dtype, w dtype, s0 given, chunk) of one call."""
+    return (*r.shape, str(r.dtype).split(".")[1], str(w.dtype).split(".")[1],
+            s0 is not None, chunk)
+
+
+SERVE_LOG = {"_ll": {"lowrank_linear_batched": _batched_key},
+             "_rwkv": {"rwkv6_scan": _scan_key}}
+
+
+def phase_serve(seed, card, checked, arch, per_forward, phase,
+                ragged=None):
+    """A serving path at full width: SlotServer serves 16 requests (every
+    other one cut to ``ragged`` tokens when given), then generate runs
+    once; every adapted projection goes through ``lowrank_linear_batched``
+    and, for RWKV, every layer's recurrence through ``rwkv6_scan``.
+    ``per_forward`` states each kernel's launches per forward; ``checked``
+    holds each kernel's checked shape keys."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import lowrank_linear as ll
     from repro_torch.launch import adapters as adapters_lib
     from repro_torch.launch import serve
     from repro_torch.models import model as model_lib
 
-    cfg = get_config("qwen1.5-0.5b")
+    cfg = get_config(arch)
     check(cfg.param_dtype == torch.bfloat16 and cfg.n_layers == 24,
-          "qwen1.5-0.5b config is not the full-width bf16 one")
+          f"{arch} config is not the full-width bf16 one")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model_lib.init_params(cfg, seed=seed, device="cuda")
     served = adapters_lib.demo_wrap(params, cfg, G, rank=R, seed=seed + 2)
+    del params
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    per_forward = 7 * cfg.n_layers
     rng = np.random.default_rng(seed + 1)
     prompts = rng.integers(0, cfg.vocab_size, (2 * B, PROMPT), dtype=np.int32)
-    reqs = [serve.Request(rid=i, prompt=prompts[i], max_new=NEW,
-                          adapter=i % G) for i in range(2 * B)]
+    reqs = [serve.Request(rid=i,
+                          prompt=prompts[i][:ragged if i % 2 else None],
+                          max_new=NEW, adapter=i % G) for i in range(2 * B)]
     # warm-up (CUDA context, library handles), outside the counted run
     serve.SlotServer(served, cfg, slots=B, cache_len=PROMPT + NEW).run(
         [serve.Request(rid=0, prompt=prompts[0], max_new=2)])
 
-    ll.lowrank_linear_batched.launches = 0
-    with ShapeLog({"_ll": {"lowrank_linear_batched": _batched_key}}) as log:
+    _zero_counts()
+    with ShapeLog(SERVE_LOG) as log:
         srv = serve.SlotServer(served, cfg, slots=B, cache_len=PROMPT + NEW,
                                segment=8)
         out = srv.run(reqs)
         gen_out = serve.generate(served, cfg, prompts[:B], NEW, PROMPT + NEW,
                                  adapters=np.arange(B) % G)
         torch.cuda.synchronize()
-    launches = ll.lowrank_linear_batched.launches
-    seen = log.seen["lowrank_linear_batched"]
-    check(seen <= checked, "the main path launched the kernel at shapes "
-          f"the kernel checks did not cover: {sorted(seen - checked)}")
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name, seen in log.seen.items():
+        check(seen <= checked.get(name, set()), f"{arch}: the main path "
+              f"launched {name} at shapes the kernel checks did not cover: "
+              f"{sorted(seen - checked.get(name, set()))}")
 
     s = out["stats"]
     forwards = (s["admitted"] + s["segments"] * srv.segment   # SlotServer
                 + 1 + (NEW - 1))                               # generate
-    check(launches == per_forward * forwards,
-          f"kernel launches {launches} != {per_forward} x {forwards} "
-          "forwards: a projection bypassed the kernel")
+    for name, count in launches.items():
+        want = per_forward.get(name, 0) * forwards
+        check(count == want, f"{arch}: {name} launched {count} times, "
+              f"expected {per_forward.get(name, 0)} x {forwards} forwards: "
+              "a layer bypassed its kernel or ran one it does not use")
     check(s["admitted"] == 2 * B and not srv.active.any(),
           "SlotServer did not serve every request")
     for i in range(2 * B):
@@ -359,20 +401,23 @@ def phase_serve(seed, card, checked):
     check(tuple(gen_out.shape) == (B, PROMPT + NEW) and
           bool(((gen_out >= 0) & (gen_out < cfg.vocab_size)).all()),
           "generate output has the wrong shape or range")
-    emit({"phase": "serve", "arch": cfg.name, "card": card,
-          "requests": 2 * B, "slots": B, "prompt": PROMPT, "max_new": NEW,
-          "adapters": G, "rank": R, "setup_s": setup_s,
-          "prefill_tok_s": s["prefill_tok_s"],
+    emit({"phase": phase, "arch": cfg.name, "card": card,
+          "requests": 2 * B, "slots": B, "prompt": PROMPT,
+          "ragged_prompt": ragged, "max_new": NEW, "adapters": G, "rank": R,
+          "setup_s": setup_s, "prefill_tok_s": s["prefill_tok_s"],
           "decode_tok_s": s["decode_tok_s"], "segments": s["segments"],
           "forwards": forwards, "launches": launches,
-          "launches_per_forward": per_forward,
-          "kernel_shapes": sorted(seen)})
+          "launches_per_forward": per_forward, "peak_gib": peak,
+          "kernel_shapes": {k: sorted(v) for k, v in log.seen.items()}})
     return cfg, served, launches
 
 
-def phase_parity(cfg, served, seed):
+def phase_parity(cfg, served, seed, phase="parity"):
     """One prefill + 4 decode steps, kernel vs plain version on the card,
-    the same tokens fed to both."""
+    the same tokens fed to both. A control, reported and not gated, reads
+    how far the plain path itself moves when 1 % of the embedding table's
+    entries move by one bf16 ulp: the model's own amplification of
+    rounding, the floor under any kernel that rounds in another order."""
     from repro_torch.kernels import ops
     from repro_torch.models import layers
     from repro_torch.models import model as model_lib
@@ -385,30 +430,156 @@ def phase_parity(cfg, served, seed):
     ids = torch.arange(B, dtype=torch.int32, device="cuda") % G
 
     @torch.inference_mode()
-    def run():
+    def run(params=served):
         st = model_lib.init_decode_state(cfg, B, PROMPT + 4, device="cuda")
         outs = []
         with layers.adapter_ids(ids):
-            logits, st = model_lib.prefill(served, cfg, prompts, st)
+            logits, st = model_lib.prefill(params, cfg, prompts, st)
             outs.append(logits)
             for i in range(4):
-                logits, st = model_lib.decode_step(served, cfg, feed[i], st)
+                logits, st = model_lib.decode_step(params, cfg, feed[i], st)
                 outs.append(logits)
         return torch.stack(outs)
 
     got = run()
     with ops.plain_kernels():
         want = run()
+    emb = served["embed"]["w"]
+    noise = torch.Generator(device="cuda")
+    noise.manual_seed(seed + 5)
+    moved = torch.rand(emb.shape, generator=noise, device="cuda") < 0.01
+    bumped = dict(served, embed={"w": torch.where(
+        moved, torch.nextafter(emb, torch.full_like(emb, float("inf"))),
+        emb)})
+    with ops.plain_kernels():
+        control = run(bumped)
+    del moved, bumped
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got).all()), "kernel-path logits not finite")
     scale = want.abs().max().item()
     rel = (got - want).abs().max().item() / scale
     agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-    emit({"phase": "parity", "forwards": "prefill + 4 decode", "batch": B,
+    emit({"phase": phase, "arch": cfg.name,
+          "forwards": "prefill + 4 decode", "batch": B,
           "logit_scale": scale, "max_abs_diff_rel": rel,
-          "greedy_agreement": agree, "bound": PARITY_BOUND})
-    check(rel <= PARITY_BOUND, f"end-to-end logits differ by {rel} of the "
-                               f"logit scale > {PARITY_BOUND}")
+          "per_forward_rel": [(g - w).abs().max().item() / scale
+                              for g, w in zip(got, want)],
+          "greedy_agreement": agree, "bound": PARITY_BOUND,
+          "control_embed_ulp_rel":
+              (control - want).abs().max().item() / scale})
+    check(rel <= PARITY_BOUND, f"{cfg.name}: end-to-end logits differ by "
+                               f"{rel} of the logit scale > {PARITY_BOUND}")
+
+
+def _scan_case(gen, b, l, dtype=torch.bfloat16, w_dtype=torch.float32,
+               s0=True, h=RWKV_H, d=RWKV_D):
+    """WKV inputs on the card: r, k, v ~ N(0, 0.5²), w = exp(-exp(N(-2,
+    1.5²))) (decays from ~0.4 to ~0.999, as the model's), u ~ N(0, 0.3²),
+    s0 ~ N(0, 0.5²) or None."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    r, k, v = (0.5 * rnd(b, l, h, d) for _ in range(3))
+    w = torch.exp(-torch.exp(-2.0 + 1.5 * rnd(b, l, h, d)))
+    return dict(r=r.to(dtype), k=k.to(dtype), v=v.to(dtype),
+                w=w.to(w_dtype), u=0.3 * rnd(h, d),
+                s0=0.5 * rnd(b, h, d, d) if s0 else None)
+
+
+def scan_bound(c):
+    """(ms, 'bytes'|'operations') of one rwkv6_scan call: r, k, v, w and
+    s0 read once, y and s_final written once; 4 D² fp32 operations per
+    step per (b, h) — y_j = Σ_i r_i S_ij + v_j Σ_i r_i u_i k_i and
+    S_ij ← w_i S_ij + k_i v_j, one multiply-add each."""
+    r = c["r"]
+    b, l, h, d = r.shape
+    nbytes = (4 * r.numel() * r.element_size()        # r, k, v in; y out
+              + c["w"].numel() * c["w"].element_size()
+              + c["u"].numel() * 4
+              + (2 if c["s0"] is not None else 1) * b * h * d * d * 4)
+    return _bound(nbytes, [(4.0 * b * l * h * d * d, PEAK_FP32)])
+
+
+def phase_rwkv_kernel_checks(gen):
+    """``rwkv6_scan`` against its plain version at every shape the RWKV
+    serving path launches — SlotServer's admission prefill (1, 128) and
+    (1, 100), generate's prefill (8, 128), decode (8, 1); bf16 r/k/v, fp32
+    w, s0 given, chunk 128 — plus fp32 r/k/v, bf16 w, no s0, D = 40,
+    several chunks with a ragged tail and a small chunk. Returns the worst
+    error and the keys checked."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as scan_kernel
+    path = [dict(b=1, l=PROMPT), dict(b=1, l=100), dict(b=B, l=PROMPT),
+            dict(b=B, l=1)]
+    extra = [dict(b=2, l=PROMPT, dtype=torch.float32),
+             dict(b=2, l=37, w_dtype=torch.bfloat16),
+             dict(b=2, l=1, s0=False),
+             dict(b=2, l=50, d=40),
+             dict(b=1, l=300),
+             dict(b=2, l=100, chunk=16)]
+    worst, checked = 0.0, set()
+    for spec in path + extra:
+        spec = dict(spec)
+        chunk = spec.pop("chunk", 128)
+        c = _scan_case(gen, **spec)
+        args = (c["r"], c["k"], c["v"], c["w"], c["u"], c["s0"])
+        y, s_fin = scan_kernel(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        y_p, s_p = ref.rwkv6_scan_ref(*args)
+        check(y.dtype == y_p.dtype and y.shape == y_p.shape and
+              s_fin.dtype == s_p.dtype == torch.float32,
+              f"rwkv6_scan output {y.dtype}{tuple(y.shape)} vs plain "
+              f"{y_p.dtype}{tuple(y_p.shape)}")
+        y_scale = y_p.float().abs().max().item()
+        s_scale = s_p.abs().max().item()
+        err_y = (y.float() - y_p.float()).abs().max().item()
+        err_s = (s_fin - s_p).abs().max().item()
+        tol_y = (SCAN_TOL * y_scale if y.dtype == torch.float32
+                 else bf16_ulp(y_scale))
+        tol_s = SCAN_TOL * s_scale
+        emit({"phase": "rwkv_kernel_check", "kernel": "rwkv6_scan",
+              "r": list(c["r"].shape), "dtype": str(y.dtype).split(".")[1],
+              "w_dtype": str(c["w"].dtype).split(".")[1],
+              "s0": c["s0"] is not None, "chunk": chunk,
+              "bit_identical": torch.equal(y, y_p) and torch.equal(s_fin,
+                                                                    s_p),
+              "max_abs_err_y": err_y, "y_scale": y_scale, "tol_y": tol_y,
+              "max_abs_err_s": err_s, "s_scale": s_scale, "tol_s": tol_s})
+        check(err_y <= tol_y and err_s <= tol_s,
+              f"rwkv6_scan disagrees at r {tuple(c['r'].shape)} "
+              f"{y.dtype}: y {err_y} > {tol_y} or s {err_s} > {tol_s}")
+        worst = max(worst, err_y, err_s)
+        checked.add(_scan_key(*args, chunk=chunk))
+    return worst, checked
+
+
+def phase_rwkv_times(gen, card):
+    """``rwkv6_scan`` and its plain version at the serving path's prefill
+    and decode shapes, eager and from a CUDA graph, against the bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as scan_kernel
+    rows = []
+    for label, b, l in (("admission prefill", 1, PROMPT),
+                        ("ragged admission prefill", 1, 100),
+                        ("generate prefill", B, PROMPT), ("decode", B, 1)):
+        sets = [_scan_case(gen, b, l) for _ in range(4)]
+        b_ms, b_by = scan_bound(sets[0])
+        row = {"phase": "rwkv_times", "kernel": "rwkv6_scan", "card": card,
+               "shape": label, "B": b, "L": l, "H": RWKV_H, "D": RWKV_D,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library": "no single call"}
+
+        def args(c):
+            return (c["r"], c["k"], c["v"], c["w"], c["u"], c["s0"])
+
+        rows.append(_timed(row, {
+            "ms": lambda c: scan_kernel(*args(c)),
+            "plain_ms": lambda c: ref.rwkv6_scan_ref(*args(c)),
+            "library_ms": None}, sets))
+        row["bound_share"] = b_ms / row["ms"]
+        row["device_bound_share"] = b_ms / row["device_ms"]
+        emit(row)
+        del sets
+    return rows
 
 
 def phase_times(gen, card):
@@ -677,24 +848,26 @@ def _train_setup(seed):
     return cfg, engine, batcher
 
 
-def _launch_counts():
+def _counted():
+    """Every kernel wrapper of the port, by name."""
     from repro_torch.kernels import batched_eigh as be
     from repro_torch.kernels import galore_adamw as ga
     from repro_torch.kernels import lowrank_linear as ll
-    return {"lowrank_linear": ll.lowrank_linear.launches,
-            "galore_precond_step": ga.galore_precond_step.launches,
-            "galore_adamw_step": ga.galore_adamw_step.launches,
-            "jacobi_eigh": be.jacobi_eigh.launches,
-            "lowrank_linear_batched": ll.lowrank_linear_batched.launches}
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    return {"lowrank_linear": ll.lowrank_linear,
+            "galore_precond_step": ga.galore_precond_step,
+            "galore_adamw_step": ga.galore_adamw_step,
+            "jacobi_eigh": be.jacobi_eigh,
+            "lowrank_linear_batched": ll.lowrank_linear_batched,
+            "rwkv6_scan": rwkv6_scan}
+
+
+def _launch_counts():
+    return {name: fn.launches for name, fn in _counted().items()}
 
 
 def _zero_counts():
-    from repro_torch.kernels import batched_eigh as be
-    from repro_torch.kernels import galore_adamw as ga
-    from repro_torch.kernels import lowrank_linear as ll
-    for fn in (ll.lowrank_linear, ga.galore_precond_step,
-               ga.galore_adamw_step, be.jacobi_eigh,
-               ll.lowrank_linear_batched):
+    for fn in _counted().values():
         fn.launches = 0
 
 
@@ -752,7 +925,8 @@ def phase_train(seed, card, checked):
                   f"round {r['round']}: {name} launched "
                   f"{r['launches'][name]} times, expected {want}")
         check(r["launches"]["galore_adamw_step"] == 0
-              and r["launches"]["lowrank_linear_batched"] == 0,
+              and r["launches"]["lowrank_linear_batched"] == 0
+              and r["launches"]["rwkv6_scan"] == 0,
               "the training path launched a kernel it does not run")
         emit({"phase": "train", "arch": cfg.name, "card": card,
               "round": r["round"], "clients": CLIENTS,
@@ -988,10 +1162,23 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
 
-    # serving path
-    max_err, checked = phase_kernel_checks(gen)
-    cfg, served, launches = phase_serve(args.seed, card, checked)
+    # serving path, qwen1.5-0.5b
+    max_err, checked = phase_kernel_checks(gen, SHAPES)
+    cfg, served, launches = phase_serve(
+        args.seed, card, {"lowrank_linear_batched": checked},
+        "qwen1.5-0.5b", QWEN_PER_FORWARD, "serve")
     phase_parity(cfg, served, args.seed)
+    del served
+    torch.cuda.empty_cache()
+
+    # serving path, rwkv6-1.6b (one model on the card at a time)
+    rwkv_ll_err, rwkv_ll_checked = phase_kernel_checks(gen, RWKV_SHAPES)
+    scan_err, scan_checked = phase_rwkv_kernel_checks(gen)
+    cfg, served, rwkv_launches = phase_serve(
+        args.seed, card, {"lowrank_linear_batched": rwkv_ll_checked,
+                          "rwkv6_scan": scan_checked},
+        "rwkv6-1.6b", RWKV_PER_FORWARD, "serve_rwkv", ragged=100)
+    phase_parity(cfg, served, args.seed, phase="parity_rwkv")
     del served
     torch.cuda.empty_cache()
 
@@ -1005,6 +1192,7 @@ def main(argv=None) -> int:
 
     rows = phase_times(gen, card)
     train_rows = phase_train_times(gen, card)
+    scan_rows = phase_rwkv_times(gen, card)
 
     decode = [r for r in rows if r["shape"] == "decode"]
     per_layer = {k: sum(LAYER_MIX[(r["m"], r["n"])] * r[k] for r in decode)
@@ -1018,7 +1206,12 @@ def main(argv=None) -> int:
         "name": "lowrank_linear_batched", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lowrank_linear_batched.cu",
         "replaces": "src/repro/kernels/lowrank_linear.py:140",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": (launches["lowrank_linear_batched"]
+                     + rwkv_launches["lowrank_linear_batched"]),
+        "launches_by_path": {
+            "serve": launches["lowrank_linear_batched"],
+            "serve_rwkv": rwkv_launches["lowrank_linear_batched"]},
+        "max_abs_err": max(max_err, rwkv_ll_err),
         "ms": per_layer["ms"], "plain_ms": per_layer["plain_ms"],
         "bound_ms": per_layer["bound_ms"], "bound_by": "bytes"
         if all(r["bound_by"] == "bytes" for r in decode) else "operations",
@@ -1066,6 +1259,19 @@ def main(argv=None) -> int:
             "device_plain_ms": agg["device_plain_ms"],
             "device_library_ms": agg["device_library_ms"],
             "at": at + "; " + timing, "card": card})
+    admit = next(r for r in scan_rows if r["shape"] == "admission prefill")
+    kernels.append({
+        "name": "rwkv6_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan.py:54",
+        "launches": rwkv_launches["rwkv6_scan"], "max_abs_err": scan_err,
+        **{k: admit[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "device_ms",
+                                 "device_plain_ms", "device_library_ms")},
+        "at": "one rwkv6-1.6b layer of one SlotServer admission prefill: "
+              "r, k, v (1, 128, 32, 64) bf16, w fp32, s0 fp32; " + timing
+              + "; no single library call computes it",
+        "card": card})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

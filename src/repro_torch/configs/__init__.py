@@ -1,4 +1,4 @@
-"""Architecture configs the port can run (qwen1.5-0.5b so far)."""
+"""Architecture configs the port can run (qwen1.5-0.5b, rwkv6-1.6b)."""
 from .base import ArchConfig, get_config, register, smoke_variant
 
 __all__ = ["ArchConfig", "get_config", "register", "smoke_variant"]

@@ -9,5 +9,13 @@ their plain PyTorch versions in ``ref``.
 * ``galore_adamw.galore_precond_step`` / ``galore_adamw_step`` — the fused
   GaLore preconditioner and GaLoreAdamW step, ``csrc/galore_adamw.cu``;
 * ``batched_eigh.jacobi_eigh`` — the batched small Jacobi eigensolver,
-  ``csrc/batched_eigh.cu``.
+  ``csrc/batched_eigh.cu``;
+* ``rwkv6_scan.rwkv6_scan`` — the RWKV6 WKV recurrence,
+  ``csrc/rwkv6_scan.cu``.
+
+As in the JAX package, ``kernels.rwkv6_scan`` names the dispatching
+``ops.rwkv6_scan``; the kernel module's own wrapper (with its launch
+counter) is reached as ``from repro_torch.kernels.rwkv6_scan import
+rwkv6_scan``.
 """
+from .ops import rwkv6_scan  # noqa: F401

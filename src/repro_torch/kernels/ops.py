@@ -16,8 +16,10 @@ import torch
 from . import batched_eigh as _eigh
 from . import galore_adamw as _galore
 from . import lowrank_linear as _ll
+from . import rwkv6_scan as _rwkv
 from .ref import (galore_adamw_ref, galore_precond_ref, jacobi_eigh_ref,
-                  lowrank_linear_batched_ref, lowrank_linear_ref)
+                  lowrank_linear_batched_ref, lowrank_linear_ref,
+                  rwkv6_scan_ref)
 
 MAX_JACOBI_DIM = _eigh.MAX_JACOBI_DIM
 _PLAIN = [0]   # depth of open plain_kernels() contexts
@@ -113,6 +115,19 @@ def galore_adamw_step(w, g, basis, m, v, count, *, side=None, b1=0.9,
         m.float().contiguous(), v.float().contiguous(), count, side=side,
         b1=b1, b2=b2, eps=eps, lr=lr, weight_decay=weight_decay,
         bias_correction=bias_correction)
+
+
+def rwkv6_scan(r, k, v, w, u, s0=None, *, chunk=128):
+    """The RWKV6 WKV recurrence over any L — see ``kernels.rwkv6_scan``.
+    r, k, v, w (B, L, H, D); u (H, D); s0 (B, H, D, D) or None. Returns
+    (y in r's dtype, s_final fp32). u and s0 are taken as fp32."""
+    _one_device("rwkv6_scan", r, k, v, w, u, s0)
+    if not _kernel(r):
+        return rwkv6_scan_ref(r, k, v, w, u, s0)
+    return _rwkv.rwkv6_scan(
+        r.contiguous(), k.contiguous(), v.contiguous(), w.contiguous(),
+        u.float().contiguous(),
+        None if s0 is None else s0.float().contiguous(), chunk=chunk)
 
 
 def batched_small_eigh(a, *, mask=None, force=None, sweeps=12):

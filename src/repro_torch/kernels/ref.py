@@ -146,3 +146,41 @@ def jacobi_eigh_ref(a, *, sweeps: int = 12):
                             stable=True)
     vec = torch.gather(v, 2, order[:, None, :].expand(-1, n, -1))
     return lam.reshape(lead + (n,)), vec.reshape(lead + (n, n))
+
+
+def _pairwise_sum(x):
+    """Sum over dim -2 as a pairwise tree of adjacent pairs — ((x0 + x1) +
+    (x2 + x3)) + … — zero-padded to a power of two: the order the WKV6
+    kernel sums in."""
+    n = x.shape[-2]
+    size = 1 << max(n - 1, 0).bit_length()
+    if size != n:
+        x = torch.nn.functional.pad(x, (0, 0, 0, size - n))
+    while x.shape[-2] > 1:
+        x = x[..., 0::2, :] + x[..., 1::2, :]
+    return x[..., 0, :]
+
+
+def rwkv6_scan_ref(r, k, v, w, u, s0=None):
+    """The RWKV6 WKV recurrence, per (b, h), over any length L:
+
+        y_t = r_t · (S + diag(u) k_t v_tᵀ);   S ← diag(w_t) S + k_t v_tᵀ
+
+    r, k, v, w (B, L, H, D); u (H, D); s0 (B, H, D, D) or None (zeros).
+    The state and every product are fp32, each product and sum rounded on
+    its own, and the sum over i is :func:`_pairwise_sum`: the CUDA
+    kernel's arithmetic in its order, so the two agree bit for bit.
+    Returns (y (B, L, H, D) in r's dtype, s_final (B, H, D, D) fp32)."""
+    b, l, h, d = r.shape
+    s = (torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float())
+    u32 = u.float()[None, :, :, None]
+    ys = []
+    for t in range(l):
+        r_t, k_t, v_t, w_t = (x[:, t].float() for x in (r, k, v, w))
+        kv = k_t[..., :, None] * v_t[..., None, :]          # (B, H, D, D)
+        ys.append(_pairwise_sum(r_t[..., :, None] * (s + u32 * kv)))
+        s = w_t[..., None] * s + kv
+    y = (torch.stack(ys, dim=1) if ys else
+         torch.zeros((b, 0, h, d), dtype=torch.float32, device=r.device))
+    return y.to(r.dtype), s

@@ -20,7 +20,13 @@ tables (:mod:`repro_torch.launch.adapters`). Everything runs under
 ``torch.inference_mode()`` on ``device`` (default ``"cuda"``; the CPU only
 when asked).
 
+Two model families serve: the dense GQA family (qwen1.5-0.5b, the CLI's
+default ``--arch``) and RWKV6 (rwkv6-1.6b), whose recurrent state takes the
+place of the KV cache:
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+      --adapters 8 --adapter-rank 16 --mode continuous
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
       --adapters 8 --adapter-rank 16 --mode continuous
 """
 from __future__ import annotations
@@ -176,10 +182,10 @@ class Request:
 
 
 def _insert(state, tok, slot: int, sub_state, sub_tok) -> None:
-    """Write one prefilled request's cache rows, position and first token
-    into slot ``slot`` of the live batched state, in place (the JAX
-    version builds new arrays). Layer-state leaves are stacked
-    (nb, B, ...), so the slot axis is 1."""
+    """Write one prefilled request's layer-state rows (KV cache, or RWKV
+    shifts and WKV state), position and first token into slot ``slot`` of
+    the live batched state, in place (the JAX version builds new arrays).
+    Layer-state leaves are stacked (nb, B, ...), so the slot axis is 1."""
     for big, small in zip(state.layers, sub_state.layers):
         for b_leaf, s_leaf in zip(big, small):
             b_leaf[:, slot] = s_leaf[:, 0].to(b_leaf.dtype)
@@ -209,8 +215,10 @@ class SlotServer:
         self.temperature = float(temperature)
         self.gen = _generator(self.device, seed)
         self.n_adapters = _adapter_count(params)
-        # The JAX version casts the state to decode_step's output dtypes
-        # here, which only its scan carry needs; a Python loop does not.
+        # The JAX version casts its state to decode_step's output dtypes
+        # here (RWKV shifts start bf16 and come out in the activation
+        # dtype). init_decode_state already allocates those dtypes, and the
+        # in-place writes refuse any other.
         self.state = model_lib.init_decode_state(cfg, self.slots, cache_len,
                                                  per_slot=True,
                                                  device=self.device)

@@ -1,4 +1,5 @@
-"""Config-driven decoder, dense family (port of ``repro/models/model.py``:
+"""Config-driven decoder, dense family and RWKV6 (port of
+``repro/models/model.py``:
 ``init_params``, ``forward``, ``loss_fn``, ``prefill``, ``decode_step`` and
 the decode state).
 
@@ -13,8 +14,12 @@ return it with the new position. ``forward`` and ``loss_fn`` are the
 training read: autograd runs through the loop, with no activation
 checkpointing.
 
-Only the dense family (GQA attention + dense MLP, RoPE or no positional
-embedding) is ported; other families raise ``NotImplementedError``.
+Ported: the dense family (GQA attention + dense MLP, RoPE or no
+positional embedding) for all five entry points, and RWKV6 (time-mix +
+channel-mix, ``models/rwkv.py``) for ``init_params``, ``init_decode_state``,
+``prefill`` and ``decode_step`` — serving. RWKV ``forward``/``loss_fn``
+(training) wait for a backward of ``rwkv6_scan``; other families raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,19 +31,28 @@ from .. import resolve_device
 from ..configs.base import ArchConfig
 from ..utils import tree
 from . import attention as attn_lib
+from . import rwkv as rwkv_lib
 from .layers import (apply_norm, dense_init, glu_mlp, glu_mlp_init, mlp,
                      mlp_init, norm_init)
 
 PyTree = Any
 
 
-def _check_ported(cfg: ArchConfig) -> None:
+def _check_ported(cfg: ArchConfig, training: bool = False) -> None:
     kinds = set(cfg.layer_kinds())
+    if kinds == {("rwkv", "cmix")}:
+        if training:
+            raise NotImplementedError(
+                f"{cfg.name}: RWKV training is a later slice of the port — "
+                "rwkv6_scan has no backward yet (ROADMAP Queue 1 item 11); "
+                "serving (prefill, decode_step) is ported")
+        return
     if kinds != {("attn", "mlp")} or cfg.pos_emb not in ("rope", "none"):
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {sorted(kinds)} / pos_emb "
-            f"{cfg.pos_emb!r} — the port runs the dense family only so far "
-            "(ROADMAP Queue 1 item 11: other model families)")
+            f"{cfg.pos_emb!r} — the port runs the dense family and RWKV6 "
+            "serving only so far (ROADMAP Queue 1 item 11: other model "
+            "families)")
 
 
 # ------------------------------------------------------------------ init ----
@@ -46,6 +60,15 @@ def _check_ported(cfg: ArchConfig) -> None:
 def _init_stacked_layer(gen, cfg: ArchConfig, n_blocks: int) -> dict:
     """One period position's params, every leaf stacked (n_blocks, ...)."""
     dtype, dev, lead = cfg.param_dtype, gen.device, (n_blocks,)
+    if cfg.rwkv:
+        return {"norm1": norm_init(cfg.d_model, cfg.norm, device=dev,
+                                   lead=lead),
+                "tmix": rwkv_lib.time_mix_init(gen, cfg.d_model, dtype,
+                                               lead=lead),
+                "norm2": norm_init(cfg.d_model, cfg.norm, device=dev,
+                                   lead=lead),
+                "cmix": rwkv_lib.channel_mix_init(gen, cfg.d_model, cfg.d_ff,
+                                                  dtype, lead=lead)}
     init_mlp = glu_mlp_init if cfg.mlp_kind == "glu" else mlp_init
     return {"norm1": norm_init(cfg.d_model, cfg.norm, device=dev, lead=lead),
             "attn": attn_lib.gqa_init(gen, cfg.d_model, cfg.n_heads,
@@ -109,7 +132,7 @@ def forward(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor,
             embeds=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence causal forward. Returns (fp32 logits, moe aux loss —
     zero for the dense family)."""
-    _check_ported(cfg)
+    _check_ported(cfg, training=True)
     if embeds is not None:
         raise NotImplementedError(
             "frontend embeddings belong to the vlm/audio families (ROADMAP "
@@ -148,19 +171,33 @@ def loss_fn(params: PyTree, cfg: ArchConfig, batch, aux_coef: float = 0.01
 class DecodeState(NamedTuple):
     t: torch.Tensor     # int32 absolute position: 0-d (homogeneous batch)
                         # or (B,) per-slot (continuous batching)
-    layers: PyTree      # list (period) of stacked per-block KVCaches
+    layers: PyTree      # list (period) of stacked per-block KVCaches or
+                        # RwkvStates
+
+
+def _layer_state_init(cfg: ArchConfig, batch: int, cache_len: int, dev):
+    lead = (cfg.n_blocks(),)
+    if cfg.rwkv:
+        # The JAX package starts the shifts in bf16 and its step replaces
+        # them with x[:, -1] in the activation dtype; the port writes them
+        # in place, so it allocates that dtype up front.
+        return rwkv_lib.rwkv_state_init(batch, cfg.d_model,
+                                        dtype=cfg.param_dtype, device=dev,
+                                        lead=lead)
+    return attn_lib.kv_cache_init(batch, cache_len, cfg.n_kv_heads, cfg.hd,
+                                  device=dev, lead=lead)
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
                       per_slot: bool = False, device="cuda") -> DecodeState:
-    """Empty bf16 KV caches (every config, as in the JAX package) stacked
-    (n_blocks, B, cache_len, ...). ``per_slot`` starts ``t`` as a (B,)
-    vector — each batch row advances at its own depth."""
+    """Empty per-layer states stacked (n_blocks, B, ...): bf16 KV caches of
+    ``cache_len`` slots (every attention config, as in the JAX package), or
+    RWKV states (shifts in the activation dtype, fp32 WKV; ``cache_len``
+    unused). ``per_slot`` starts ``t`` as a (B,) vector — each batch row
+    advances at its own depth."""
     _check_ported(cfg)
     dev = resolve_device(device)
-    layers = [attn_lib.kv_cache_init(batch, cache_len, cfg.n_kv_heads,
-                                     cfg.hd, device=dev,
-                                     lead=(cfg.n_blocks(),))
+    layers = [_layer_state_init(cfg, batch, cache_len, dev)
               for _ in range(cfg.block_period())]
     t = torch.zeros((batch,) if per_slot else (), dtype=torch.int32,
                     device=dev)
@@ -173,6 +210,19 @@ def _attn_kwargs(cfg: ArchConfig) -> dict:
                 window=cfg.sliding_window)
 
 
+def _rwkv_layer(lp, st, cfg: ArchConfig, h):
+    """One RWKV6 layer over h (B, L, D) — time-mix, then channel-mix —
+    writing the layer's recurrent state ``st`` in place."""
+    x = apply_norm(h, lp["norm1"], cfg.norm)
+    out, _ = rwkv_lib.time_mix_forward(lp["tmix"], x, st, cfg.d_model,
+                                       return_state=True)
+    h = h + out
+    x = apply_norm(h, lp["norm2"], cfg.norm)
+    out, _ = rwkv_lib.channel_mix_forward(lp["cmix"], x, st,
+                                          return_state=True)
+    return h + out
+
+
 def decode_step(params: PyTree, cfg: ArchConfig, token: torch.Tensor,
                 state: DecodeState) -> Tuple[torch.Tensor, DecodeState]:
     """One new token for every sequence in the batch. token (B,) int32.
@@ -182,6 +232,9 @@ def decode_step(params: PyTree, cfg: ArchConfig, token: torch.Tensor,
         for j in range(cfg.block_period()):
             lp = _block(params["blocks"][j], i)
             st = _block(state.layers[j], i)
+            if cfg.rwkv:
+                h = _rwkv_layer(lp, st, cfg, h)
+                continue
             x = apply_norm(h, lp["norm1"], cfg.norm)
             out, _ = attn_lib.gqa_decode(lp["attn"], x, st, state.t,
                                          **_attn_kwargs(cfg))
@@ -192,8 +245,9 @@ def decode_step(params: PyTree, cfg: ArchConfig, token: torch.Tensor,
 
 def prefill(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor,
             state: DecodeState) -> Tuple[torch.Tensor, DecodeState]:
-    """Process a prompt, filling a fresh state's caches in place. Returns
-    (last-position fp32 logits, state with 0-d ``t = L``)."""
+    """Process a prompt, filling a fresh state's caches (RWKV: its
+    recurrent state) in place. Returns (last-position fp32 logits, state
+    with 0-d ``t = L``)."""
     h = _embed(params, cfg, tokens)
     l_total = h.shape[1]
     positions = torch.arange(l_total, device=h.device)
@@ -201,6 +255,9 @@ def prefill(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor,
         for j in range(cfg.block_period()):
             lp = _block(params["blocks"][j], i)
             st = _block(state.layers[j], i)
+            if cfg.rwkv:
+                h = _rwkv_layer(lp, st, cfg, h)
+                continue
             x = apply_norm(h, lp["norm1"], cfg.norm)
             out, (k, v) = attn_lib.gqa_forward(
                 lp["attn"], x, positions, attn_chunk=cfg.attn_chunk,

@@ -325,7 +325,9 @@ for name in ("repro_torch.utils.prng", "repro_torch.core.fed",
              "repro_torch.core.ajive", "repro_torch.core.state_sync",
              "repro_torch.core.aggregation", "repro_torch.optim.adamw",
              "repro_torch.kernels.galore_adamw",
-             "repro_torch.kernels.batched_eigh", "repro_torch.data.pipeline"):
+             "repro_torch.kernels.batched_eigh", "repro_torch.data.pipeline",
+             "repro_torch.models.rwkv", "repro_torch.kernels.rwkv6_scan",
+             "repro_torch.configs.rwkv6_1_6b"):
     assert name in names, name
 for name, path in (("chip_smoke", "chip_smoke.py"),
                    ("quickstart_torch", "examples/quickstart_torch.py")):
