@@ -3,8 +3,8 @@
   python3 chip_smoke.py [--seed 0]
 
 Builds every CUDA kernel from ``src/repro_torch`` (one ``nvcc`` per source,
-all at once) and drives the port's three paths at full width (bf16, 24
-layers, random weights from ``--seed``):
+all at once) and drives the port's paths at full width (bf16, random
+weights from ``--seed``):
 
 * serving qwen1.5-0.5b: ``SlotServer`` and ``generate`` with 8
   heterogeneous adapters through ``lowrank_linear_batched``;
@@ -15,7 +15,15 @@ layers, random weights from ``--seed``):
   ``FedEngine.run_round`` (4 clients, 2 local steps, batch 4 x 128, rank
   8) — round 0 through
   ``galore_precond_step`` and ``jacobi_eigh``, round 1 through
-  ``lowrank_linear`` and ``jacobi_eigh``.
+  ``lowrank_linear`` and ``jacobi_eigh``;
+* serving starcoder2-7b (32 layers, d 4608, 36 q heads on 4 kv heads of
+  128, sliding window 4096): the same serving run with 8 adapters on its
+  six target projections, and one long-context prefill of 8192 tokens on
+  the base weights, where the window acts.
+
+Every dense prefill's attention goes through ``flash_attention`` (qwen
+and starcoder2), decode's through the plain masked attention over the
+KV cache.
 
 Each kernel is held against its plain PyTorch version at every shape its
 path launches (a ``ShapeLog`` fails the run on an unchecked shape), the
@@ -59,6 +67,27 @@ PARITY_BOUND = 5e-2     # max |logit diff| / max |logit|, bf16 end to end
 # channel-mix wk wv wr) and runs the WKV recurrence once per layer.
 QWEN_PER_FORWARD = {"lowrank_linear_batched": 7 * 24}
 RWKV_PER_FORWARD = {"lowrank_linear_batched": 8 * 24, "rwkv6_scan": 24}
+# Launches per prefill forward on top of those (none per decode forward):
+# a dense model's prefill runs flash_attention once per layer; decode
+# attends over its KV cache with the plain masked attention.
+QWEN_PER_PREFILL = {"flash_attention": 24}
+FULL_LAYERS = {"qwen1.5-0.5b": 24, "rwkv6-1.6b": 24, "starcoder2-7b": 32}
+
+# starcoder2-7b: (m, n) of its six adapted projections per layer (wq wo
+# (4608, 4608), wk wv (4608, 512), w_up (4608, 18432), w_down (18432,
+# 4608)); 36 q heads on 4 kv heads of 128; sliding window 4096.
+SC_SHAPES = [(4608, 4608), (4608, 512), (4608, 18432), (18432, 4608)]
+SC_H, SC_KV, SC_D, SC_WINDOW = 36, 4, 128, 4096
+SC_PER_FORWARD = {"lowrank_linear_batched": 6 * 32}
+SC_PER_PREFILL = {"flash_attention": 32}
+# The long-context prefill: one prompt of 8192 tokens (twice the window),
+# base weights, 8 new tokens.
+LONG_PROMPT, LONG_NEW = 8192, 8
+# flash_attention against its plain version, set before the first run:
+# fp32 within 1e-5 of the output scale (the two sum the D products and
+# the keys in other orders); bf16 within one bf16 ulp of the output scale
+# (the fp32 result is rounded once).
+FLASH_TOL = 1e-5
 
 # rwkv6-1.6b: (m, n) of its adapted projections and their count per layer
 # (time-mix 5 x (2048, 2048), channel-mix wr (2048, 2048), wk (2048, 7168),
@@ -130,7 +159,8 @@ def ptxas_summary(log: str):
             name = m.group(1)
             short = re.search(r"(shrink_kernel|gemm_kernel|"
                               r"reduce_epilogue_kernel|right_kernel|"
-                              r"left_kernel|wkv6_kernel)I(.*?)EEv", name)
+                              r"left_kernel|wkv6_kernel|flash_kernel)"
+                              r"I(.*?)EEv", name)
             plain = re.search(r"(jacobi_kernel)", name)
             cur = {"function": (short.group(1) + "<" + short.group(2) + ">")
                    if short else plain.group(1) if plain else name}
@@ -332,26 +362,58 @@ def _scan_key(r, k, v, w, u, s0=None, *, chunk=128):
             s0 is not None, chunk)
 
 
+def _flash_key(q, k, v, *, causal=True, window=0, scale=None):
+    """(q shape, k shape, dtype, causal, window, q contiguous) of one
+    call."""
+    return (tuple(q.shape), tuple(k.shape), str(q.dtype).split(".")[1],
+            bool(causal), int(window), q.is_contiguous())
+
+
 SERVE_LOG = {"_ll": {"lowrank_linear_batched": _batched_key},
-             "_rwkv": {"rwkv6_scan": _scan_key}}
+             "_rwkv": {"rwkv6_scan": _scan_key},
+             "_flash": {"flash_attention": _flash_key}}
+
+
+def _full_config(arch):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    check(cfg.param_dtype == torch.bfloat16 and
+          cfg.n_layers == FULL_LAYERS[arch],
+          f"{arch} config is not the full-width bf16 one")
+    return cfg
+
+
+def _check_launches(arch, launches, expected):
+    for name, count in launches.items():
+        check(count == expected.get(name, 0),
+              f"{arch}: {name} launched {count} times, expected "
+              f"{expected.get(name, 0)}: a layer bypassed its kernel or ran "
+              "one it does not use")
+
+
+def _check_shapes(arch, seen, checked):
+    for name, keys in seen.items():
+        check(keys <= checked.get(name, set()), f"{arch}: the main path "
+              f"launched {name} at shapes the kernel checks did not cover: "
+              f"{sorted(keys - checked.get(name, set()))}")
 
 
 def phase_serve(seed, card, checked, arch, per_forward, phase,
-                ragged=None):
+                ragged=None, per_prefill=None):
     """A serving path at full width: SlotServer serves 16 requests (every
     other one cut to ``ragged`` tokens when given), then generate runs
-    once; every adapted projection goes through ``lowrank_linear_batched``
-    and, for RWKV, every layer's recurrence through ``rwkv6_scan``.
-    ``per_forward`` states each kernel's launches per forward; ``checked``
+    once; every adapted projection goes through ``lowrank_linear_batched``,
+    for RWKV every layer's recurrence through ``rwkv6_scan``, and for a
+    dense model every prefill layer's attention through
+    ``flash_attention``. ``per_forward`` states each kernel's launches per
+    forward, ``per_prefill`` those per prefill forward on top; ``checked``
     holds each kernel's checked shape keys."""
-    from repro_torch.configs import get_config
     from repro_torch.launch import adapters as adapters_lib
     from repro_torch.launch import serve
     from repro_torch.models import model as model_lib
 
-    cfg = get_config(arch)
-    check(cfg.param_dtype == torch.bfloat16 and cfg.n_layers == 24,
-          f"{arch} config is not the full-width bf16 one")
+    per_prefill = per_prefill or {}
+    cfg = _full_config(arch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model_lib.init_params(cfg, seed=seed, device="cuda")
@@ -359,6 +421,8 @@ def phase_serve(seed, card, checked, arch, per_forward, phase,
     del params
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()      # the serving run's own peak
     rng = np.random.default_rng(seed + 1)
     prompts = rng.integers(0, cfg.vocab_size, (2 * B, PROMPT), dtype=np.int32)
     reqs = [serve.Request(rid=i,
@@ -378,19 +442,15 @@ def phase_serve(seed, card, checked, arch, per_forward, phase,
         torch.cuda.synchronize()
     launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    for name, seen in log.seen.items():
-        check(seen <= checked.get(name, set()), f"{arch}: the main path "
-              f"launched {name} at shapes the kernel checks did not cover: "
-              f"{sorted(seen - checked.get(name, set()))}")
+    _check_shapes(arch, log.seen, checked)
 
     s = out["stats"]
-    forwards = (s["admitted"] + s["segments"] * srv.segment   # SlotServer
-                + 1 + (NEW - 1))                               # generate
-    for name, count in launches.items():
-        want = per_forward.get(name, 0) * forwards
-        check(count == want, f"{arch}: {name} launched {count} times, "
-              f"expected {per_forward.get(name, 0)} x {forwards} forwards: "
-              "a layer bypassed its kernel or ran one it does not use")
+    prefills = s["admitted"] + 1                    # SlotServer, generate
+    forwards = prefills + s["segments"] * srv.segment + (NEW - 1)
+    _check_launches(arch, launches, {
+        name: per_forward.get(name, 0) * forwards
+        + per_prefill.get(name, 0) * prefills
+        for name in set(per_forward) | set(per_prefill)})
     check(s["admitted"] == 2 * B and not srv.active.any(),
           "SlotServer did not serve every request")
     for i in range(2 * B):
@@ -406,32 +466,41 @@ def phase_serve(seed, card, checked, arch, per_forward, phase,
           "ragged_prompt": ragged, "max_new": NEW, "adapters": G, "rank": R,
           "setup_s": setup_s, "prefill_tok_s": s["prefill_tok_s"],
           "decode_tok_s": s["decode_tok_s"], "segments": s["segments"],
-          "forwards": forwards, "launches": launches,
-          "launches_per_forward": per_forward, "peak_gib": peak,
+          "forwards": forwards, "prefill_forwards": prefills,
+          "launches": launches, "launches_per_forward": per_forward,
+          "launches_per_prefill": per_prefill, "peak_gib": peak,
+          "setup_peak_gib": setup_peak,
+          "resident_gib": torch.cuda.memory_allocated() / 2 ** 30,
           "kernel_shapes": {k: sorted(v) for k, v in log.seen.items()}})
     return cfg, served, launches
 
 
-def phase_parity(cfg, served, seed, phase="parity"):
-    """One prefill + 4 decode steps, kernel vs plain version on the card,
-    the same tokens fed to both. A control, reported and not gated, reads
-    how far the plain path itself moves when 1 % of the embedding table's
-    entries move by one bf16 ulp: the model's own amplification of
-    rounding, the floor under any kernel that rounds in another order."""
+def phase_parity(cfg, served, seed, phase="parity", batch=B, prompt=PROMPT,
+                 adapters=True):
+    """One prefill of ``batch`` x ``prompt`` tokens + 4 decode steps,
+    kernel vs plain version on the card, the same tokens fed to both (each
+    row its own adapter, or the base weights). A control, reported and not
+    gated, reads how far the plain path itself moves when 1 % of the
+    embedding table's entries move by one bf16 ulp: the model's own
+    amplification of rounding, the floor under any kernel that rounds in
+    another order."""
     from repro_torch.kernels import ops
     from repro_torch.models import layers
     from repro_torch.models import model as model_lib
 
     rng = np.random.default_rng(seed + 3)
-    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, PROMPT),
-                                           dtype=np.int32), device="cuda")
-    feed = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, B),
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                           (batch, prompt), dtype=np.int32),
+                              device="cuda")
+    feed = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, batch),
                                         dtype=np.int32), device="cuda")
-    ids = torch.arange(B, dtype=torch.int32, device="cuda") % G
+    ids = (torch.arange(batch, dtype=torch.int32, device="cuda") % G
+           if adapters else None)
 
     @torch.inference_mode()
     def run(params=served):
-        st = model_lib.init_decode_state(cfg, B, PROMPT + 4, device="cuda")
+        st = model_lib.init_decode_state(cfg, batch, prompt + 4,
+                                         device="cuda")
         outs = []
         with layers.adapter_ids(ids):
             logits, st = model_lib.prefill(params, cfg, prompts, st)
@@ -441,9 +510,13 @@ def phase_parity(cfg, served, seed, phase="parity"):
                 outs.append(logits)
         return torch.stack(outs)
 
+    torch.cuda.reset_peak_memory_stats()
     got = run()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
     with ops.plain_kernels():
         want = run()
+    plain_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     emb = served["embed"]["w"]
     noise = torch.Generator(device="cuda")
     noise.manual_seed(seed + 5)
@@ -460,11 +533,13 @@ def phase_parity(cfg, served, seed, phase="parity"):
     rel = (got - want).abs().max().item() / scale
     agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
     emit({"phase": phase, "arch": cfg.name,
-          "forwards": "prefill + 4 decode", "batch": B,
+          "forwards": "prefill + 4 decode", "batch": batch,
+          "prompt": prompt, "adapters": G if adapters else 0,
           "logit_scale": scale, "max_abs_diff_rel": rel,
           "per_forward_rel": [(g - w).abs().max().item() / scale
                               for g, w in zip(got, want)],
           "greedy_agreement": agree, "bound": PARITY_BOUND,
+          "peak_gib": peak, "plain_peak_gib": plain_peak,
           "control_embed_ulp_rel":
               (control - want).abs().max().item() / scale})
     check(rel <= PARITY_BOUND, f"{cfg.name}: end-to-end logits differ by "
@@ -582,14 +657,15 @@ def phase_rwkv_times(gen, card):
     return rows
 
 
-def phase_times(gen, card):
+def phase_times(gen, card, shapes=SHAPES, arch="qwen1.5-0.5b"):
     """Kernel, plain version and torch.matmul of the base product alone at
-    decode (B=8, t=1) and prefill (B=8, t=128) for each projection shape."""
+    decode (B=8, t=1) and prefill (B=8, t=128) for each projection shape
+    of ``arch``."""
     from repro_torch.kernels import lowrank_linear as ll
     from repro_torch.kernels.ref import lowrank_linear_batched_ref
     ids = list(range(B))
     rows = []
-    for m, n in SHAPES:
+    for m, n in shapes:
         for label, t in (("decode", 1), ("prefill", PROMPT)):
             per = 2 * (m * n + B * t * (m + n)) + G * R * (m + n) * 4
             sets = [make_case(gen, m, n, t, torch.bfloat16, ids)
@@ -609,8 +685,8 @@ def phase_times(gen, card):
                 return torch.matmul(c["x"], c["w"])
 
             b_ms, b_by = bound(sets[0])
-            row = {"phase": "times", "card": card, "m": m, "n": n,
-                   "shape": label, "B": B, "t": t,
+            row = {"phase": "times", "card": card, "arch": arch, "m": m,
+                   "n": n, "shape": label, "B": B, "t": t,
                    "library": "torch.matmul(x, W), base product only",
                    "bound_ms": b_ms, "bound_by": b_by}
             for key, fn in (("ms", kern), ("plain_ms", plain),
@@ -622,6 +698,232 @@ def phase_times(gen, card):
             emit(row)
             rows.append(row)
             del sets
+    return rows
+
+
+# ------------------------------------------------- flash attention --
+
+def _flash_case(gen, b, lq, h, hkv, d, lk=None, dtype=torch.bfloat16,
+                strided=False):
+    """q (b, lq, h, d), k and v (b, lk, hkv, d) ~ N(0, 1) on the card (the
+    scores then ~ N(0, 1) after the 1/sqrt(D) scale); ``strided`` takes q
+    as every other head of a wider tensor, a non-contiguous layout."""
+    lk = lq if lk is None else lk
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    q = rnd(b, lq, 2 * h, d)[:, :, ::2] if strided else rnd(b, lq, h, d)
+    return dict(q=q, k=rnd(b, lk, hkv, d), v=rnd(b, lk, hkv, d))
+
+
+def flash_pairs(lq, lk, causal=True, window=0):
+    """(query, key) pairs one head attends, counted exactly: query i at
+    position lk - lq + i sees keys max(0, p - window + 1) .. p."""
+    if not causal:
+        return lq * lk
+    pos = np.arange(lq, dtype=np.int64) + (lk - lq)
+    lo = np.maximum(pos - window + 1, 0) if window else np.zeros_like(pos)
+    return int(np.clip(pos - lo + 1, 0, None).sum())
+
+
+def flash_bound(c, causal=True, window=0):
+    """(ms, 'bytes'|'operations') of one flash_attention call: q, k, v read
+    once and o written once; 4 D operations per attended pair and q head
+    (QK and PV, a multiply-add each) at the inputs' tensor-core peak."""
+    q, k = c["q"], c["k"]
+    b, lq, h, d = q.shape
+    esz = q.element_size()
+    nbytes = esz * (2 * q.numel() + 2 * k.numel())
+    ops = 4.0 * b * h * d * flash_pairs(lq, k.shape[1], causal, window)
+    return _bound(nbytes, [(ops, PEAK_BF16 if q.dtype == torch.bfloat16
+                            else PEAK_FP32)])
+
+
+# (label, B, Lq, Lk, H, Hkv, D, window) of every call the paths make
+FLASH_PATH = [
+    ("qwen admission prefill", 1, PROMPT, PROMPT, 16, 16, 64, 0),
+    ("qwen generate prefill", B, PROMPT, PROMPT, 16, 16, 64, 0),
+    ("starcoder2 admission prefill", 1, PROMPT, PROMPT, SC_H, SC_KV, SC_D,
+     SC_WINDOW),
+    ("starcoder2 ragged admission prefill", 1, 100, 100, SC_H, SC_KV, SC_D,
+     SC_WINDOW),
+    ("starcoder2 generate prefill", B, PROMPT, PROMPT, SC_H, SC_KV, SC_D,
+     SC_WINDOW),
+    ("starcoder2 long prefill", 1, LONG_PROMPT, LONG_PROMPT, SC_H, SC_KV,
+     SC_D, SC_WINDOW),
+]
+
+
+def phase_flash_kernel_checks(gen):
+    """``flash_attention`` against its plain version at every shape the
+    dense prefill paths launch, plus the edges: Lq < Lk (suffix-aligned),
+    Lq > Lk (queries that see no key), a window smaller than a key tile,
+    fp32 at both head sizes, ``causal=False``, and a strided q. Returns the
+    worst error and the keys checked."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    cases = [dict(b=b, lq=lq, lk=lk, h=h, hkv=hkv, d=d, window=w)
+             for _, b, lq, lk, h, hkv, d, w in FLASH_PATH]
+    cases += [dict(b=2, lq=100, lk=300, h=SC_H, hkv=SC_KV, d=128, window=128),
+              dict(b=2, lq=150, lk=70, h=8, hkv=2, d=64, window=0),
+              dict(b=1, lq=150, lk=70, h=SC_H, hkv=SC_KV, d=128, window=40),
+              dict(b=2, lq=200, lk=200, h=SC_H, hkv=SC_KV, d=128, window=20),
+              dict(b=2, lq=130, lk=130, h=SC_H, hkv=SC_KV, d=128, window=64,
+                   dtype=torch.float32),
+              dict(b=2, lq=77, lk=77, h=16, hkv=16, d=64,
+                   dtype=torch.float32),
+              dict(b=2, lq=90, lk=200, h=SC_H, hkv=SC_KV, d=128,
+                   causal=False),
+              dict(b=2, lq=128, lk=128, h=SC_H, hkv=SC_KV, d=128,
+                   window=4096, strided=True)]
+    worst, checked = 0.0, set()
+    for spec in cases:
+        spec = dict(spec)
+        causal = spec.pop("causal", True)
+        window = spec.pop("window", 0)
+        c = _flash_case(gen, **spec)
+        args = (c["q"], c["k"], c["v"])
+        o = fk(*args, causal=causal, window=window)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_ref(*args, causal=causal, window=window)
+        check(o.dtype == want.dtype and o.shape == want.shape,
+              f"flash_attention output {o.dtype}{tuple(o.shape)} vs plain "
+              f"{want.dtype}{tuple(want.shape)}")
+        err = (o.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        tol = (FLASH_TOL * scale if o.dtype == torch.float32
+               else bf16_ulp(scale))
+        emit({"phase": "flash_kernel_check", "kernel": "flash_attention",
+              "q": list(c["q"].shape), "k": list(c["k"].shape),
+              "dtype": str(o.dtype).split(".")[1], "causal": causal,
+              "window": window, "q_contiguous": c["q"].is_contiguous(),
+              "max_abs_err": err, "out_scale": scale, "tol": tol})
+        check(bool(torch.isfinite(o).all()) and err <= tol,
+              f"flash_attention disagrees at q {tuple(c['q'].shape)} k "
+              f"{tuple(c['k'].shape)} {o.dtype} causal={causal} "
+              f"window={window}: {err} > {tol}")
+        worst = max(worst, err)
+        checked.add(_flash_key(*args, causal=causal, window=window))
+        del c, args, o, want
+    return worst, checked
+
+
+def phase_long_prefill(seed, card, checked):
+    """starcoder2-7b on its base weights: ``generate`` with one prompt of
+    LONG_PROMPT tokens (twice the window), ``cache_len`` LONG_PROMPT + 8
+    and LONG_NEW new tokens, counted; then the same prefill and decode
+    timed on their own (fenced host clock)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import model as model_lib
+    arch = "starcoder2-7b"
+    cfg = _full_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model_lib.init_params(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    setup_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()      # the run's own peak
+    rng = np.random.default_rng(seed + 7)
+    prompt = rng.integers(0, cfg.vocab_size, (1, LONG_PROMPT),
+                          dtype=np.int32)
+    cache = LONG_PROMPT + 8
+    _zero_counts()
+    with ShapeLog(SERVE_LOG) as log:
+        out = serve.generate(params, cfg, prompt, LONG_NEW, cache)
+        torch.cuda.synchronize()
+    launches = _launch_counts()
+    _check_shapes(arch, log.seen, checked)
+    _check_launches(arch, launches, {"flash_attention": cfg.n_layers})
+    check(tuple(out.shape) == (1, LONG_PROMPT + LONG_NEW) and
+          bool((out[0, :LONG_PROMPT].cpu() == torch.from_numpy(prompt[0]))
+               .all()) and
+          bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          "long-prefill generate output has the wrong shape, prompt or range")
+
+    @torch.inference_mode()
+    def timed():
+        toks = torch.as_tensor(prompt, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = model_lib.init_decode_state(cfg, 1, cache, device="cuda")
+        logits, st = model_lib.prefill(params, cfg, toks, st)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        for _ in range(LONG_NEW - 1):
+            logits, st = model_lib.decode_step(params, cfg, tok, st)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(bool(torch.isfinite(logits).all()), "long-prefill logits "
+              "not finite")
+        return t1 - t0, t2 - t1
+
+    pf, dc = timed()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    emit({"phase": "long_prefill_starcoder", "arch": arch, "card": card,
+          "prompt": LONG_PROMPT, "window": cfg.sliding_window,
+          "cache_len": cache, "new_tokens": LONG_NEW, "adapters": 0,
+          "prefill_s": pf, "prefill_tok_s": LONG_PROMPT / pf,
+          "decode_s": dc, "decode_tok_s": (LONG_NEW - 1) / dc,
+          "launches": launches, "peak_gib": peak,
+          "setup_peak_gib": setup_peak,
+          "resident_gib": torch.cuda.memory_allocated() / 2 ** 30,
+          "kernel_shapes": {k: sorted(v) for k, v in log.seen.items()}})
+    return cfg, params, launches
+
+
+def phase_flash_times(gen, card):
+    """``flash_attention``, its plain version and the yardstick
+    ``scaled_dot_product_attention`` (timed only, never called by the
+    port) at every path shape, eager and from a CUDA graph, against the
+    bound. The yardstick takes (B, H, L, D) views, ``is_causal`` and
+    ``enable_gqa``; where the window cuts (L > window) a boolean mask in
+    place of ``is_causal``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for label, b, lq, lk, h, hkv, d, window in FLASH_PATH:
+        per = 2 * (2 * b * lq * h * d + 2 * b * lk * hkv * d)
+        sets = [_flash_case(gen, b, lq, h, hkv, d, lk)
+                for _ in range(max(2, -(-150_000_000 // per)))]
+        mask = None
+        if window and lq > window:
+            pos = torch.arange(lq, device="cuda")
+            diff = pos[:, None] - pos[None, :]
+            mask = (diff >= 0) & (diff < window)
+        b_ms, b_by = flash_bound(sets[0], True, window)
+        row = {"phase": "flash_times", "kernel": "flash_attention",
+               "card": card, "shape": label, "q": [b, lq, h, d],
+               "k": [b, lk, hkv, d], "window": window,
+               "pairs_per_head": flash_pairs(lq, lk, True, window),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library": "torch.nn.functional.scaled_dot_product_attention"
+                          "(enable_gqa=True, " + ("boolean window mask)"
+                                                  if mask is not None
+                                                  else "is_causal=True)")}
+
+        def lib(c, mask=mask):
+            q, k, v = (c[n].transpose(1, 2) for n in ("q", "k", "v"))
+            if mask is None:
+                return sdpa(q, k, v, is_causal=True, enable_gqa=True)
+            return sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+
+        long_ = lq * lk > 1 << 24
+        _timed(row, {
+            "ms": lambda c, w=window: fk(c["q"], c["k"], c["v"], causal=True,
+                                         window=w),
+            "plain_ms": lambda c, w=window: ref.flash_attention_ref(
+                c["q"], c["k"], c["v"], causal=True, window=w),
+            "library_ms": lib}, sets,
+            **(dict(warmup=1, iters=3, calls=2, replays=2) if long_ else {}))
+        row["bound_share"] = b_ms / row["ms"]
+        row["device_bound_share"] = b_ms / row["device_ms"]
+        emit(row)
+        rows.append(row)
+        del sets, mask
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -853,8 +1155,10 @@ def _counted():
     from repro_torch.kernels import batched_eigh as be
     from repro_torch.kernels import galore_adamw as ga
     from repro_torch.kernels import lowrank_linear as ll
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan
-    return {"lowrank_linear": ll.lowrank_linear,
+    return {"flash_attention": flash_attention,
+            "lowrank_linear": ll.lowrank_linear,
             "galore_precond_step": ga.galore_precond_step,
             "galore_adamw_step": ga.galore_adamw_step,
             "jacobi_eigh": be.jacobi_eigh,
@@ -926,7 +1230,8 @@ def phase_train(seed, card, checked):
                   f"{r['launches'][name]} times, expected {want}")
         check(r["launches"]["galore_adamw_step"] == 0
               and r["launches"]["lowrank_linear_batched"] == 0
-              and r["launches"]["rwkv6_scan"] == 0,
+              and r["launches"]["rwkv6_scan"] == 0
+              and r["launches"]["flash_attention"] == 0,
               "the training path launched a kernel it does not run")
         emit({"phase": "train", "arch": cfg.name, "card": card,
               "round": r["round"], "clients": CLIENTS,
@@ -1012,7 +1317,8 @@ def _bound(nbytes, flops_by_peak):
             "operations" if ops_s > bytes_s else "bytes")
 
 
-def _timed(row, fns, sets, no_graph=()):
+def _timed(row, fns, sets, no_graph=(), warmup=5, iters=40, calls=20,
+           replays=5):
     """Eager ms of each function; device ms from a CUDA graph except for
     the keys in ``no_graph`` (calls that synchronise with the host cannot
     be captured), which get None."""
@@ -1020,9 +1326,9 @@ def _timed(row, fns, sets, no_graph=()):
         if fn is None:
             row[key] = row["device_" + key] = None
             continue
-        row[key] = time_ms(fn, sets)
+        row[key] = time_ms(fn, sets, warmup, iters)
         row["device_" + key] = None if key in no_graph else \
-            graph_ms(fn, sets)
+            graph_ms(fn, sets, calls, replays)
     return row
 
 
@@ -1162,11 +1468,16 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
 
+    # every dense prefill's attention: qwen and starcoder2
+    flash_err, flash_checked = phase_flash_kernel_checks(gen)
+
     # serving path, qwen1.5-0.5b
     max_err, checked = phase_kernel_checks(gen, SHAPES)
     cfg, served, launches = phase_serve(
-        args.seed, card, {"lowrank_linear_batched": checked},
-        "qwen1.5-0.5b", QWEN_PER_FORWARD, "serve")
+        args.seed, card, {"lowrank_linear_batched": checked,
+                          "flash_attention": flash_checked},
+        "qwen1.5-0.5b", QWEN_PER_FORWARD, "serve",
+        per_prefill=QWEN_PER_PREFILL)
     phase_parity(cfg, served, args.seed)
     del served
     torch.cuda.empty_cache()
@@ -1190,9 +1501,30 @@ def main(argv=None) -> int:
     del snaps
     torch.cuda.empty_cache()
 
+    # serving path, starcoder2-7b: 8 adapters, then one long prefill on the
+    # base weights, each against the plain versions
+    sc_ll_err, sc_ll_checked = phase_kernel_checks(gen, SC_SHAPES)
+    cfg, served, sc_launches = phase_serve(
+        args.seed, card, {"lowrank_linear_batched": sc_ll_checked,
+                          "flash_attention": flash_checked},
+        "starcoder2-7b", SC_PER_FORWARD, "serve_starcoder", ragged=100,
+        per_prefill=SC_PER_PREFILL)
+    phase_parity(cfg, served, args.seed, phase="parity_starcoder")
+    del served
+    torch.cuda.empty_cache()
+    cfg, params, long_launches = phase_long_prefill(
+        args.seed, card, {"flash_attention": flash_checked})
+    phase_parity(cfg, params, args.seed, phase="parity_starcoder",
+                 batch=1, prompt=LONG_PROMPT, adapters=False)
+    del params
+    torch.cuda.empty_cache()
+
     rows = phase_times(gen, card)
+    phase_times(gen, card, RWKV_SHAPES, "rwkv6-1.6b")
+    phase_times(gen, card, SC_SHAPES, "starcoder2-7b")
     train_rows = phase_train_times(gen, card)
     scan_rows = phase_rwkv_times(gen, card)
+    flash_rows = phase_flash_times(gen, card)
 
     decode = [r for r in rows if r["shape"] == "decode"]
     per_layer = {k: sum(LAYER_MIX[(r["m"], r["n"])] * r[k] for r in decode)
@@ -1207,11 +1539,13 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/lowrank_linear_batched.cu",
         "replaces": "src/repro/kernels/lowrank_linear.py:140",
         "launches": (launches["lowrank_linear_batched"]
-                     + rwkv_launches["lowrank_linear_batched"]),
+                     + rwkv_launches["lowrank_linear_batched"]
+                     + sc_launches["lowrank_linear_batched"]),
         "launches_by_path": {
             "serve": launches["lowrank_linear_batched"],
-            "serve_rwkv": rwkv_launches["lowrank_linear_batched"]},
-        "max_abs_err": max(max_err, rwkv_ll_err),
+            "serve_rwkv": rwkv_launches["lowrank_linear_batched"],
+            "serve_starcoder": sc_launches["lowrank_linear_batched"]},
+        "max_abs_err": max(max_err, rwkv_ll_err, sc_ll_err),
         "ms": per_layer["ms"], "plain_ms": per_layer["plain_ms"],
         "bound_ms": per_layer["bound_ms"], "bound_by": "bytes"
         if all(r["bound_by"] == "bytes" for r in decode) else "operations",
@@ -1271,6 +1605,28 @@ def main(argv=None) -> int:
         "at": "one rwkv6-1.6b layer of one SlotServer admission prefill: "
               "r, k, v (1, 128, 32, 64) bf16, w fp32, s0 fp32; " + timing
               + "; no single library call computes it",
+        "card": card})
+    long_row = next(r for r in flash_rows
+                    if r["shape"] == "starcoder2 long prefill")
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:73",
+        "launches": (launches["flash_attention"]
+                     + sc_launches["flash_attention"]
+                     + long_launches["flash_attention"]),
+        "launches_by_path": {
+            "serve": launches["flash_attention"],
+            "serve_starcoder": sc_launches["flash_attention"],
+            "long_prefill_starcoder": long_launches["flash_attention"]},
+        "max_abs_err": flash_err,
+        **{k: long_row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms", "device_ms",
+                                    "device_plain_ms", "device_library_ms")},
+        "at": "one starcoder2-7b layer of the long prefill: q (1, 8192, 36, "
+              "128), k, v (1, 8192, 4, 128) bf16, causal, window 4096; "
+              + timing + "; library_ms is scaled_dot_product_attention "
+              "with enable_gqa and a boolean window mask",
         "card": card})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

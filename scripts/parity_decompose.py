@@ -8,7 +8,9 @@ decode steps several ways: every kernel, every plain version, each kernel
 alone (the other kernels' plain versions in their place), the plain path
 twice (determinism), and the plain path with 1 % of the embedding table's
 entries moved by one bf16 ulp (the model's own amplification of
-rounding). Prints one JSON line: for each run, max |logit - plain logit|
+rounding). The path's kernels: ``lowrank_linear_batched``, and
+``rwkv6_scan`` (RWKV6) or ``flash_attention`` (the dense family's
+prefill). Prints one JSON line: for each run, max |logit - plain logit|
 over max |plain logit|, per forward and overall, and greedy agreement.
 Needs a CUDA card; imports neither JAX nor the JAX package.
 """
@@ -68,9 +70,10 @@ def main(argv=None) -> int:
         return torch.stack(outs)
 
     plain_of = {"lowrank_linear_batched": ops.lowrank_linear_batched_ref,
-                "rwkv6_scan": ops.rwkv6_scan_ref}
+                "rwkv6_scan": ops.rwkv6_scan_ref,
+                "flash_attention": ops.flash_attention_ref}
     kernels = ["lowrank_linear_batched"] + (["rwkv6_scan"] if cfg.rwkv
-                                            else [])
+                                            else ["flash_attention"])
 
     @contextlib.contextmanager
     def plain_except(keep):

@@ -124,7 +124,7 @@ def get_config(name: str) -> ArchConfig:
 
 
 def _load_all():
-    from . import qwen1_5_0_5b, rwkv6_1_6b  # noqa: F401
+    from . import qwen1_5_0_5b, rwkv6_1_6b, starcoder2_7b  # noqa: F401
 
 
 def smoke_variant(cfg: ArchConfig) -> ArchConfig:

@@ -11,11 +11,13 @@ their plain PyTorch versions in ``ref``.
 * ``batched_eigh.jacobi_eigh`` — the batched small Jacobi eigensolver,
   ``csrc/batched_eigh.cu``;
 * ``rwkv6_scan.rwkv6_scan`` — the RWKV6 WKV recurrence,
-  ``csrc/rwkv6_scan.cu``.
+  ``csrc/rwkv6_scan.cu``;
+* ``flash_attention.flash_attention`` — causal GQA attention with a
+  sliding window, forward only, ``csrc/flash_attention.cu``.
 
-As in the JAX package, ``kernels.rwkv6_scan`` names the dispatching
-``ops.rwkv6_scan``; the kernel module's own wrapper (with its launch
-counter) is reached as ``from repro_torch.kernels.rwkv6_scan import
-rwkv6_scan``.
+As in the JAX package, ``kernels.rwkv6_scan`` and
+``kernels.flash_attention`` name the dispatching ``ops`` functions; a
+kernel module's own wrapper (with its launch counter) is reached as
+``from repro_torch.kernels.rwkv6_scan import rwkv6_scan``.
 """
-from .ops import rwkv6_scan  # noqa: F401
+from .ops import flash_attention, rwkv6_scan  # noqa: F401

@@ -14,12 +14,13 @@ import contextlib
 import torch
 
 from . import batched_eigh as _eigh
+from . import flash_attention as _flash
 from . import galore_adamw as _galore
 from . import lowrank_linear as _ll
 from . import rwkv6_scan as _rwkv
-from .ref import (galore_adamw_ref, galore_precond_ref, jacobi_eigh_ref,
-                  lowrank_linear_batched_ref, lowrank_linear_ref,
-                  rwkv6_scan_ref)
+from .ref import (flash_attention_ref, galore_adamw_ref, galore_precond_ref,
+                  jacobi_eigh_ref, lowrank_linear_batched_ref,
+                  lowrank_linear_ref, rwkv6_scan_ref)
 
 MAX_JACOBI_DIM = _eigh.MAX_JACOBI_DIM
 _PLAIN = [0]   # depth of open plain_kernels() contexts
@@ -128,6 +129,27 @@ def rwkv6_scan(r, k, v, w, u, s0=None, *, chunk=128):
         r.contiguous(), k.contiguous(), v.contiguous(), w.contiguous(),
         u.float().contiguous(),
         None if s0 is None else s0.float().contiguous(), chunk=chunk)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
+    """Causal GQA attention over a fresh sequence, forward only — see
+    ``kernels.flash_attention``. q (B, Lq, H, D), k/v (B, Lk, Hkv, D);
+    returns (B, Lq, H, D) in q's dtype.
+
+    There is no backward (the JAX package has none either): with grad
+    mode on and an input that requires grad it raises rather than return
+    a result that drops the gradient."""
+    _one_device("flash_attention", q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention is forward only: an input requires grad; "
+            "differentiate models.attention.attend / blockwise_attend "
+            "instead (gqa_forward does so while grad is recorded)")
+    if not _kernel(q):
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+    return _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                  scale=scale)
 
 
 def batched_small_eigh(a, *, mask=None, force=None, sweeps=12):

@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -184,3 +185,77 @@ def rwkv6_scan_ref(r, k, v, w, u, s0=None):
     y = (torch.stack(ys, dim=1) if ys else
          torch.zeros((b, 0, h, d), dtype=torch.float32, device=r.device))
     return y.to(r.dtype), s
+
+
+FLASH_NEG = -1e30        # masked scores, finite as in the JAX package
+FLASH_REF_SCORES = 1 << 28   # fp32 scores per query-row chunk (1 GiB)
+
+
+def _check_flash_args(q, k, v, causal, window):
+    """The shape rules both flash versions share; raises on what neither
+    computes."""
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention takes q (B, Lq, H, D) and k, v "
+                         f"(B, Lk, Hkv, D); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, _, h, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or k.shape[2] == 0 or \
+            h % k.shape[2]:
+        raise ValueError(f"k/v {tuple(k.shape)} do not fit q "
+                         f"{tuple(q.shape)}: batch and head size must match "
+                         "and H must be a multiple of Hkv")
+    if window and not causal:
+        raise ValueError(
+            "flash_attention: a sliding window without the causal mask is "
+            "not computed — the JAX package's two versions disagree there "
+            "(the Pallas kernel applies the window, its reference ignores "
+            "it; ROADMAP Queue 3 item m)")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
+    """Causal GQA attention over a fresh sequence (port of
+    ``repro/kernels/ref.py::flash_attention_ref``).
+
+    q (B, Lq, H, D), k/v (B, Lk, Hkv, D) with H % Hkv == 0; q head h reads
+    kv head h // (H / Hkv). The causal mask is suffix-aligned: query i
+    sits at position Lk − Lq + i and sees keys at or before it, and with
+    ``window`` > 0 only the last ``window`` of them. Scores are fp32,
+    scaled after the QK product (default 1/√D), masked with −1e30 (a
+    query that sees no key averages V uniformly, as in JAX); softmax and
+    PV in fp32, the result in q's dtype.
+
+    The query rows run in chunks of at most ``FLASH_REF_SCORES`` fp32
+    scores: each row's softmax is its own, so chunking changes no value,
+    and a long prefill (8192 tokens, 36 heads: 9.7 GB of scores) stays
+    within the card's memory. ``window`` without ``causal`` raises.
+    """
+    _check_flash_args(q, k, v, causal, window)
+    b, lq, h, d = q.shape
+    lk, hkv = k.shape[1], k.shape[2]
+    groups = h // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    k32, v32 = k.float(), v.float()
+    rows = max(1, FLASH_REF_SCORES // max(1, b * h * lk))
+    out = []
+    for q0 in range(0, lq, rows):
+        qc = q[:, q0:q0 + rows]
+        n = qc.shape[1]
+        qg = qc.reshape(b, n, hkv, groups, d).float()
+        scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k32) * scale
+        if causal:
+            qpos = torch.arange(q0, q0 + n, device=q.device)[:, None] + \
+                (lk - lq)
+            kpos = torch.arange(lk, device=q.device)[None, :]
+            mask = kpos <= qpos
+            if window:
+                mask &= (qpos - kpos) < window
+            scores = scores.masked_fill(~mask, FLASH_NEG)
+        w = torch.softmax(scores, dim=-1)
+        del scores
+        ctx = torch.einsum("bkgqs,bskd->bqkgd", w, v32)
+        out.append(ctx.reshape(b, n, h, d).to(q.dtype))
+    if not out:
+        return torch.zeros_like(q)
+    return out[0] if len(out) == 1 else torch.cat(out, dim=1)

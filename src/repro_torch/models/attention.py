@@ -4,7 +4,9 @@
 Numerics follow the JAX package: scores and context accumulate in fp32,
 the softmax is fp32, and its weights are cast to the value dtype before the
 PV product. The KV cache is bf16 in every config, so decode rounds K, V and
-the weights through bf16 in both packages.
+the weights through bf16 in both packages. Prefill with no autograd graph
+goes through the flash kernel instead (:func:`gqa_forward`), which keeps
+the weights in fp32 for PV, as the JAX package's flash kernel does.
 
 Unlike the JAX package, :func:`kv_cache_write` writes the cache tensors in
 place and returns the same :class:`KVCache`: a decode step then touches
@@ -17,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..kernels import ops as kops
 from .layers import apply_rope, dense, dense_init
 
 NEG_INF = -1e30
@@ -136,8 +139,17 @@ def blockwise_attend(q, k, v, *, window=0, chunk_q=2048, chunk_k=2048,
 
 def gqa_forward(p, x, positions, *, n_heads, n_kv, head_dim, rope=True,
                 rope_theta=1e4, window=0, attn_chunk=0):
-    """Training/prefill attention over a full sequence. x (B,L,D);
-    returns (out, (k, v))."""
+    """Training/prefill attention over a full sequence of consecutive
+    ``positions``. x (B,L,D); returns (out, (k, v)).
+
+    The attention itself takes one of two routes, by whether autograd is
+    recording. With no graph being recorded (serving prefill under
+    ``torch.inference_mode()``, ``FedEngine.evaluate``), it is
+    ``kernels.ops.flash_attention`` — causal, with the config's window:
+    the CUDA kernel on the card, its plain version on the CPU. While grad
+    is recorded (the training read), it is :func:`attend`, or
+    :func:`blockwise_attend` once L >= ``attn_chunk``, the code the JAX
+    package differentiates; the flash kernel has no backward."""
     b, l, _ = x.shape
     q = dense(x, p["wq"]) + p.get("bq", 0)
     k = dense(x, p["wk"]) + p.get("bk", 0)
@@ -148,7 +160,10 @@ def gqa_forward(p, x, positions, *, n_heads, n_kv, head_dim, rope=True,
     if rope:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
-    if attn_chunk and l >= attn_chunk:
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        ctx = kops.flash_attention(q, k, v, causal=True, window=window)
+    elif attn_chunk and l >= attn_chunk:
         c = min(attn_chunk, l // 2)
         ctx = blockwise_attend(q, k, v, window=window, chunk_q=c, chunk_k=c)
     else:

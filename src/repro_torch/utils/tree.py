@@ -98,6 +98,9 @@ def tree_flatten_with_path(tree: PyTree,
         return PyTreeDef(kind, keys, defs)
 
     treedef = rec(tree, ())
+    # rec's closure holds rec itself: left as it is, that cycle keeps
+    # ``out`` and every leaf alive until the garbage collector runs.
+    del rec
     return out, treedef
 
 

@@ -156,6 +156,26 @@ def test_tree_flatten_order_and_paths_match_jax():
         {"a": _Pair(7, 8), "b": 1}
 
 
+def test_tree_flatten_leaves_no_reference_cycle():
+    """Flattening leaves no reference cycle behind: a dropped tree's
+    leaves are freed at once, not at the next garbage collection (a
+    served model's weights would otherwise outlive it on the card)."""
+    import gc
+    import weakref
+    leaf = torch.zeros(3)
+    alive = weakref.ref(leaf)
+    t = {"a": [leaf, None], "b": _Pair(1, 2)}
+    gc.disable()
+    try:
+        tree.tree_leaves(t)
+        tree.tree_flatten_with_path(t, is_leaf=lambda x: x is None)
+        tree.tree_map(lambda x: x, t)
+        del t, leaf
+        assert alive() is None
+    finally:
+        gc.enable()
+
+
 def test_params_from_jax_keeps_bf16_bits():
     rng = np.random.default_rng(6)
     w = jnp.asarray(_rand(rng, 4, 6), jnp.bfloat16)
