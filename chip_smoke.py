@@ -26,8 +26,11 @@ and starcoder2), decode's through the plain masked attention over the
 KV cache.
 
 Each kernel is held against its plain PyTorch version at every shape its
-path launches (a ``ShapeLog`` fails the run on an unchecked shape), the
-launch counters show each path went through its kernels, each path is
+path launches (a ``ShapeLog`` fails the run on an unchecked shape) and,
+for the two low-rank applies, at the edges of each of their routes
+(``tc_gemm``, ``tc_decode``, ``fp32``); the launch counters show each
+path went through its kernels, and the route counters that every
+low-rank launch on a path took a tensor-core route; each path is
 compared end to end against a run with every kernel's plain version
 (``ops.plain_kernels``), and each kernel is timed against its bound.
 Every phase prints JSON lines; any failure raises and the script exits
@@ -157,11 +160,13 @@ def ptxas_summary(log: str):
         m = _PTXAS_FN.search(line)
         if m:
             name = m.group(1)
-            short = re.search(r"(shrink_kernel|gemm_kernel|"
-                              r"reduce_epilogue_kernel|right_kernel|"
+            short = re.search(r"(fp32_shrink_kernel|fp32_gemm_kernel|"
+                              r"reduce_kernel|tc_gemm_kernel|"
+                              r"tc_decode_kernel|right_kernel|"
                               r"left_kernel|wkv6_kernel|flash_kernel)"
                               r"I(.*?)EEv", name)
-            plain = re.search(r"(jacobi_kernel)", name)
+            plain = re.search(r"(jacobi_kernel|tc_shrink_kernel|"
+                              r"tc_sum_kernel)", name)
             cur = {"function": (short.group(1) + "<" + short.group(2) + ">")
                    if short else plain.group(1) if plain else name}
             out.append(cur)
@@ -181,15 +186,15 @@ def ptxas_summary(log: str):
 
 # ------------------------------------------------------------ kernel data --
 
-def make_case(gen, m, n, t, dtype, ids, two_d=False, dev="cuda"):
+def make_case(gen, m, n, t, dtype, ids, two_d=False, dev="cuda", r=R):
     side = "right" if m >= n else "left"
     bdim = n if side == "right" else m
     b = len(ids)
     x = torch.randn((b, m) if two_d else (b, t, m), generator=gen,
                     device=dev).to(dtype)
     w = (torch.randn(m, n, generator=gen, device=dev) / m ** 0.5).to(dtype)
-    bases = torch.randn(G, bdim, R, generator=gen, device=dev) / bdim ** 0.5
-    rts = 0.02 * torch.randn(*((G, m, R) if side == "right" else (G, R, n)),
+    bases = torch.randn(G, bdim, r, generator=gen, device=dev) / bdim ** 0.5
+    rts = 0.02 * torch.randn(*((G, m, r) if side == "right" else (G, r, n)),
                              generator=gen, device=dev)
     scales = 1.0 + 0.1 * torch.randn(G, generator=gen, device=dev)
     return dict(x=x, w=w, bases=bases, rts=rts, scales=scales,
@@ -278,26 +283,92 @@ def phase_build():
               "ptxas": ptxas_summary(_build.PTXAS_LOG.get(name, ""))})
 
 
-def phase_kernel_checks(gen, shapes):
+# Route edges of the low-rank applies, (B, t, m, n): rows 1, 16, 17 (the
+# two decode widths), TC_MIN_ROWS - 1, TC_MIN_ROWS and + 1 (decode / GEMM),
+# 65 one-row sequences (a GEMM tile over more sequences than its shared E
+# tiles), t = 100 tiles spanning two sequences, 1,024 rows; n = 520 (not a
+# multiple of the 128-column tile), m = 1,032 (not a multiple of the
+# 64-wide K tile: decode's last K chunk is 8 values), m = 4,104 with a
+# split GEMM whose last chunk is short. Every one is bf16; the misaligned
+# x view and fp32 cases take the fp32 route.
+ROUTE_EDGES = [(1, 1, 1024, 1024), (16, 1, 4608, 512), (17, 1, 1024, 2816),
+               (1, 63, 2816, 1024), (1, 64, 1024, 1024), (1, 65, 1032, 520),
+               (65, 1, 1024, 1024), (8, 100, 1032, 520), (8, 1, 1032, 520),
+               (2, 100, 4104, 136), (8, 128, 2816, 1024)]
+# Ranks and widths the paths do not send, on both tensor-core routes,
+# (B, t, m, n, r): r = 3 (no 16-byte rank loads), 24 (two rank passes of
+# the shrink, the epilogue's general loop), 64 (the largest the tc routes
+# take); n = 24 and m = 64, narrower than one TMA box.
+RANK_EDGES = [(8, 1, 1024, 1024, 3), (1, 128, 1024, 1024, 3),
+              (8, 1, 1024, 1024, 24), (1, 128, 1024, 1024, 24),
+              (1, 100, 2048, 512, 64), (8, 1, 512, 2048, 64),
+              (8, 1, 2048, 24, R), (1, 128, 2048, 24, R),
+              (1, 64, 64, 1024, R), (8, 1, 64, 1024, R)]
+
+
+def _route_taken(fn, before):
+    """The route whose counter moved since ``before`` (one launch)."""
+    moved = [k for k, v in fn.routes.items() if v != before[k]]
+    check(len(moved) == 1, f"one launch moved routes {moved}")
+    return moved[0]
+
+
+def _want_route(rows, dtype, aligned=True):
+    from repro_torch.kernels import lowrank_linear as ll
+    if dtype != torch.bfloat16 or not aligned:
+        return "fp32"
+    return "tc_gemm" if rows >= ll.TC_MIN_ROWS else "tc_decode"
+
+
+def _misaligned(x):
+    """The same values as a contiguous view whose data starts 2 bytes past
+    a 16-byte boundary (x's storage offset by one bf16 element)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    check(view.is_contiguous() and view.data_ptr() % 16 == 2,
+          "misaligned view is not what the route check needs")
+    return view
+
+
+def phase_kernel_checks(gen, shapes, edges=False):
     """The kernel against the plain version at a serving path's (m, n)
     ``shapes`` (square, wide, tall): decode (B, 1) of SlotServer and
     generate, prefill (B, PROMPT) of generate and (1, PROMPT) of
-    SlotServer's per-request admission, ragged tails, fp32 and 2-D x.
-    Returns the worst error and the keys checked."""
+    SlotServer's per-request admission, ragged tails, fp32 and 2-D x;
+    with ``edges``, the routes' edges (ROUTE_EDGES), ranks and widths the
+    paths do not send (RANK_EDGES) and a misaligned x view. Each check
+    states its route and fails on another. Returns the worst error and
+    the keys checked."""
     from repro_torch.kernels import lowrank_linear as ll
     from repro_torch.kernels.ref import lowrank_linear_batched_ref
     ids = [0, 3, 3, 7, 1, 0, 5, 2]          # duplicates, not every adapter
-    cases = [(b, m, n, t, torch.bfloat16, False) for (m, n) in shapes
+    cases = [(b, m, n, t, torch.bfloat16, False, False, R)
+             for (m, n) in shapes
              for b, t in ((B, 1), (B, 100), (B, PROMPT), (1, PROMPT),
                           (1, 100))]
-    cases += [(B, *shapes[1], 100, torch.float32, False),
-              (B, *shapes[2], 1, torch.bfloat16, True)]     # 2-D x
+    cases += [(B, *shapes[1], 100, torch.float32, False, False, R),
+              (B, *shapes[2], 1, torch.bfloat16, True, False, R)]   # 2-D x
+    if edges:
+        cases += [(b, m, n, t, torch.bfloat16, False, False, R)
+                  for b, t, m, n in ROUTE_EDGES]
+        cases += [(b, m, n, t, torch.bfloat16, False, False, r)
+                  for b, t, m, n, r in RANK_EDGES]
+        cases += [(B, *shapes[0], 1, torch.bfloat16, False, True, R),
+                  (1, *shapes[0], PROMPT, torch.bfloat16, False, True, R),
+                  (B, 1032, 520, 1, torch.float32, False, False, R)]
     worst, checked = 0.0, set()
-    for b, m, n, t, dtype, two_d in cases:
-        c = make_case(gen, m, n, t, dtype, ids[-b:], two_d)
+    fn = ll.lowrank_linear_batched
+    for b, m, n, t, dtype, two_d, misalign, r in cases:
+        c = make_case(gen, m, n, t, dtype, ids[-b:] if b <= len(ids) else
+                      [ids[i % len(ids)] for i in range(b)], two_d, r=r)
+        if misalign:
+            c["x"] = _misaligned(c["x"])
         args = (c["x"], c["w"], c["bases"], c["rts"], c["scales"], c["ids"])
-        y = ll.lowrank_linear_batched(*args, side=c["side"])
+        before = dict(fn.routes)
+        y = fn(*args, side=c["side"])
         torch.cuda.synchronize()
+        took = _route_taken(fn, before)
         want = lowrank_linear_batched_ref(*args, side=c["side"])
         check(y.dtype == want.dtype and y.shape == want.shape,
               f"kernel output {y.dtype}{tuple(y.shape)} vs plain "
@@ -306,11 +377,14 @@ def phase_kernel_checks(gen, shapes):
         scale = want.float().abs().max().item()
         tol = 1e-4 if dtype == torch.float32 else 2 * bf16_ulp(scale)
         emit({"phase": "kernel_check", "B": b, "m": m, "n": n, "t": t,
-              "x_dims": c["x"].ndim, "dtype": str(dtype).split(".")[1],
-              "side": c["side"], "max_abs_err": err, "out_scale": scale,
-              "tol": tol})
+              "r": r, "x_dims": c["x"].ndim,
+              "dtype": str(dtype).split(".")[1],
+              "side": c["side"], "misaligned_x": misalign, "route": took,
+              "max_abs_err": err, "out_scale": scale, "tol": tol})
+        check(took == _want_route(b * t, dtype, not misalign),
+              f"B={b} t={t} m={m} n={n} {dtype} took route {took}")
         check(err <= tol, f"kernel disagrees with plain at B={b} m={m} n={n} "
-                          f"t={t} {dtype}: {err} > {tol}")
+                          f"t={t} r={r} {dtype} ({took}): {err} > {tol}")
         worst = max(worst, err)
         checked.add(case_key(c["x"], c["w"]))
     return worst, checked
@@ -391,6 +465,16 @@ def _check_launches(arch, launches, expected):
               "one it does not use")
 
 
+def _check_tc_routes(path, launches, routes):
+    """Every launch of the low-rank applies on a path went through a
+    tensor-core route (tc_gemm or tc_decode), none through fp32."""
+    for name, by_route in routes.items():
+        check(by_route["fp32"] == 0 and by_route["tc_gemm"]
+              + by_route["tc_decode"] == launches[name],
+              f"{path}: {name} routes {by_route} for {launches[name]} "
+              "launches: a path call left the tensor-core routes")
+
+
 def _check_shapes(arch, seen, checked):
     for name, keys in seen.items():
         check(keys <= checked.get(name, set()), f"{arch}: the main path "
@@ -441,8 +525,10 @@ def phase_serve(seed, card, checked, arch, per_forward, phase,
                                  adapters=np.arange(B) % G)
         torch.cuda.synchronize()
     launches = _launch_counts()
+    routes = _route_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     _check_shapes(arch, log.seen, checked)
+    _check_tc_routes(arch, launches, routes)
 
     s = out["stats"]
     prefills = s["admitted"] + 1                    # SlotServer, generate
@@ -468,11 +554,12 @@ def phase_serve(seed, card, checked, arch, per_forward, phase,
           "decode_tok_s": s["decode_tok_s"], "segments": s["segments"],
           "forwards": forwards, "prefill_forwards": prefills,
           "launches": launches, "launches_per_forward": per_forward,
-          "launches_per_prefill": per_prefill, "peak_gib": peak,
+          "launches_per_prefill": per_prefill, "routes": routes,
+          "peak_gib": peak,
           "setup_peak_gib": setup_peak,
           "resident_gib": torch.cuda.memory_allocated() / 2 ** 30,
           "kernel_shapes": {k: sorted(v) for k, v in log.seen.items()}})
-    return cfg, served, launches
+    return cfg, served, launches, routes
 
 
 def phase_parity(cfg, served, seed, phase="parity", batch=B, prompt=PROMPT,
@@ -685,8 +772,11 @@ def phase_times(gen, card, shapes=SHAPES, arch="qwen1.5-0.5b"):
                 return torch.matmul(c["x"], c["w"])
 
             b_ms, b_by = bound(sets[0])
+            before = dict(ll.lowrank_linear_batched.routes)
+            kern(sets[0])
             row = {"phase": "times", "card": card, "arch": arch, "m": m,
                    "n": n, "shape": label, "B": B, "t": t,
+                   "route": _route_taken(ll.lowrank_linear_batched, before),
                    "library": "torch.matmul(x, W), base product only",
                    "bound_ms": b_ms, "bound_by": b_by}
             for key, fn in (("ms", kern), ("plain_ms", plain),
@@ -1000,31 +1090,49 @@ def phase_train_kernel_checks(gen):
                                      "galore_adamw_step", "jacobi_eigh")}
 
     # lowrank_linear: the round-1 forward (B, L) = (4, 128), bf16; ragged
-    # row tails and fp32 beside it.
-    for (m, n) in TRAIN_SHAPES:
-        for lead, dtype in (((TRAIN_B, TRAIN_L), torch.bfloat16),
-                            ((TRAIN_B, 100), torch.bfloat16),
-                            ((3, 37), torch.float32)):
-            c = _lowrank_case(gen, lead, m, n, dtype)
-            y = ll.lowrank_linear(c["x"], c["w"], c["basis"], c["rt"],
-                                  c["scale"], side=c["side"])
-            torch.cuda.synchronize()
-            want = ref.lowrank_linear_ref(c["x"], c["w"], c["basis"],
-                                          c["rt"], c["scale"], side=c["side"])
-            err = (y.float() - want.float()).abs().max().item()
-            scale = want.float().abs().max().item()
-            tol = 1e-5 * scale if dtype == torch.float32 else \
-                2 * bf16_ulp(scale)
-            emit({"phase": "train_kernel_check", "kernel": "lowrank_linear",
-                  "x": list(c["x"].shape), "m": m, "n": n,
-                  "dtype": str(dtype).split(".")[1], "side": c["side"],
-                  "max_abs_err": err, "out_scale": scale, "tol": tol})
-            check(y.dtype == want.dtype and err <= tol,
-                  f"lowrank_linear disagrees at x {tuple(c['x'].shape)} "
-                  f"w ({m}, {n}) {dtype}: {err} > {tol}")
-            out["lowrank_linear"][0] = max(out["lowrank_linear"][0], err)
-            out["lowrank_linear"][1].add(_lowrank_key(c["x"], c["w"], None,
-                                                      None, None))
+    # row tails and fp32 beside it; then the routes' edges (rows 1, 8, 16,
+    # 17, TC_MIN_ROWS - 1, TC_MIN_ROWS, + 1, 100, 128, 1,024; n = 520, m =
+    # 1,032; a split GEMM with a short last K chunk) and a misaligned x.
+    lows = [((m, n), lead, dtype, False) for (m, n) in TRAIN_SHAPES
+            for lead, dtype in (((TRAIN_B, TRAIN_L), torch.bfloat16),
+                                ((TRAIN_B, 100), torch.bfloat16),
+                                ((3, 37), torch.float32))]
+    lows += [((1032, 520), lead, torch.bfloat16, False)
+             for lead in ((1, 1), (2, 4), (1, 16), (1, 17), (1, 63), (1, 64),
+                          (1, 65), (1, 100), (1, 128), (8, 128))]
+    lows += [((4104, 136), (2, 100), torch.bfloat16, False),
+             ((1024, 2816), (TRAIN_B, TRAIN_L), torch.bfloat16, True),
+             ((1024, 1024), (2, 4), torch.bfloat16, True)]
+    fn = ll.lowrank_linear
+    for (m, n), lead, dtype, misalign in lows:
+        c = _lowrank_case(gen, lead, m, n, dtype)
+        if misalign:
+            c["x"] = _misaligned(c["x"])
+        before = dict(fn.routes)
+        y = fn(c["x"], c["w"], c["basis"], c["rt"], c["scale"],
+               side=c["side"])
+        torch.cuda.synchronize()
+        took = _route_taken(fn, before)
+        want = ref.lowrank_linear_ref(c["x"], c["w"], c["basis"],
+                                      c["rt"], c["scale"], side=c["side"])
+        err = (y.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        tol = 1e-5 * scale if dtype == torch.float32 else \
+            2 * bf16_ulp(scale)
+        emit({"phase": "train_kernel_check", "kernel": "lowrank_linear",
+              "x": list(c["x"].shape), "m": m, "n": n,
+              "dtype": str(dtype).split(".")[1], "side": c["side"],
+              "misaligned_x": misalign, "route": took,
+              "max_abs_err": err, "out_scale": scale, "tol": tol})
+        check(took == _want_route(int(np.prod(lead)), dtype, not misalign),
+              f"lowrank_linear x {tuple(c['x'].shape)} w ({m}, {n}) "
+              f"{dtype} took route {took}")
+        check(y.dtype == want.dtype and err <= tol,
+              f"lowrank_linear disagrees at x {tuple(c['x'].shape)} "
+              f"w ({m}, {n}) {dtype} ({took}): {err} > {tol}")
+        out["lowrank_linear"][0] = max(out["lowrank_linear"][0], err)
+        out["lowrank_linear"][1].add(_lowrank_key(c["x"], c["w"], None,
+                                                  None, None))
 
     # galore_precond_step: round 0's buckets (leaves, 24 layers, M, N),
     # project_back=False; odd M / small blocks and project_back=True too.
@@ -1170,9 +1278,17 @@ def _launch_counts():
     return {name: fn.launches for name, fn in _counted().items()}
 
 
+def _route_counts():
+    """Launches by route of the two low-rank applies."""
+    return {name: dict(fn.routes) for name, fn in _counted().items()
+            if hasattr(fn, "routes")}
+
+
 def _zero_counts():
     for fn in _counted().values():
         fn.launches = 0
+        if hasattr(fn, "routes"):
+            fn.routes = dict.fromkeys(fn.routes, 0)
 
 
 def _run_train(seed, plain: bool):
@@ -1204,6 +1320,7 @@ def _run_train(seed, plain: bool):
             seconds = time.perf_counter() - t0
             rounds.append({"round": rnd, "seconds": seconds,
                            "launches": _launch_counts(),
+                           "routes": _route_counts(),
                            "losses": metrics["local_loss"].cpu()})
             snaps["round0" if rnd == 0 else "final"] = snap()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1228,6 +1345,8 @@ def phase_train(seed, card, checked):
             check(r["launches"][name] == want,
                   f"round {r['round']}: {name} launched "
                   f"{r['launches'][name]} times, expected {want}")
+        _check_tc_routes(f"train round {r['round']}", r["launches"],
+                         r["routes"])
         check(r["launches"]["galore_adamw_step"] == 0
               and r["launches"]["lowrank_linear_batched"] == 0
               and r["launches"]["rwkv6_scan"] == 0
@@ -1239,7 +1358,7 @@ def phase_train(seed, card, checked):
               "rank": TRAIN_R, "round_s": r["seconds"],
               "tokens_per_s": CLIENTS * LOCAL_STEPS * TRAIN_B * TRAIN_L
               / r["seconds"], "launches": r["launches"],
-              "losses": r["losses"].tolist()})
+              "routes": r["routes"], "losses": r["losses"].tolist()})
     check(all(bool(torch.isfinite(x.float()).all())
               for x in snaps["final"]),
           "non-finite global leaves after two rounds")
@@ -1352,8 +1471,12 @@ def phase_train_times(gen, card):
             + 4 * (c["basis"].numel() + c["rt"].numel()),
             [(2.0 * rows_ * m * n, PEAK_BF16),
              (2.0 * rows_ * TRAIN_R * (m + n), PEAK_FP32)])
+        before = dict(ll.lowrank_linear.routes)
+        ll.lowrank_linear(c["x"], c["w"], c["basis"], c["rt"], c["scale"],
+                          side=c["side"])
         row = {"phase": "train_times", "kernel": "lowrank_linear",
                "card": card, "x": [TRAIN_B, TRAIN_L, m], "w": [m, n],
+               "route": _route_taken(ll.lowrank_linear, before),
                "per_layer": per_layer, "bound_ms": b_ms, "bound_by": b_by,
                "library": "torch.matmul(x, W), base product only"}
         rows.append(_timed(row, {
@@ -1472,8 +1595,8 @@ def main(argv=None) -> int:
     flash_err, flash_checked = phase_flash_kernel_checks(gen)
 
     # serving path, qwen1.5-0.5b
-    max_err, checked = phase_kernel_checks(gen, SHAPES)
-    cfg, served, launches = phase_serve(
+    max_err, checked = phase_kernel_checks(gen, SHAPES, edges=True)
+    cfg, served, launches, routes = phase_serve(
         args.seed, card, {"lowrank_linear_batched": checked,
                           "flash_attention": flash_checked},
         "qwen1.5-0.5b", QWEN_PER_FORWARD, "serve",
@@ -1485,7 +1608,7 @@ def main(argv=None) -> int:
     # serving path, rwkv6-1.6b (one model on the card at a time)
     rwkv_ll_err, rwkv_ll_checked = phase_kernel_checks(gen, RWKV_SHAPES)
     scan_err, scan_checked = phase_rwkv_kernel_checks(gen)
-    cfg, served, rwkv_launches = phase_serve(
+    cfg, served, rwkv_launches, rwkv_routes = phase_serve(
         args.seed, card, {"lowrank_linear_batched": rwkv_ll_checked,
                           "rwkv6_scan": scan_checked},
         "rwkv6-1.6b", RWKV_PER_FORWARD, "serve_rwkv", ragged=100)
@@ -1504,7 +1627,7 @@ def main(argv=None) -> int:
     # serving path, starcoder2-7b: 8 adapters, then one long prefill on the
     # base weights, each against the plain versions
     sc_ll_err, sc_ll_checked = phase_kernel_checks(gen, SC_SHAPES)
-    cfg, served, sc_launches = phase_serve(
+    cfg, served, sc_launches, sc_routes = phase_serve(
         args.seed, card, {"lowrank_linear_batched": sc_ll_checked,
                           "flash_attention": flash_checked},
         "starcoder2-7b", SC_PER_FORWARD, "serve_starcoder", ragged=100,
@@ -1545,6 +1668,10 @@ def main(argv=None) -> int:
             "serve": launches["lowrank_linear_batched"],
             "serve_rwkv": rwkv_launches["lowrank_linear_batched"],
             "serve_starcoder": sc_launches["lowrank_linear_batched"]},
+        "launches_by_route": {
+            k: sum(rt["lowrank_linear_batched"][k]
+                   for rt in (routes, rwkv_routes, sc_routes))
+            for k in routes["lowrank_linear_batched"]},
         "max_abs_err": max(max_err, rwkv_ll_err, sc_ll_err),
         "ms": per_layer["ms"], "plain_ms": per_layer["plain_ms"],
         "bound_ms": per_layer["bound_ms"], "bound_by": "bytes"
@@ -1593,6 +1720,10 @@ def main(argv=None) -> int:
             "device_plain_ms": agg["device_plain_ms"],
             "device_library_ms": agg["device_library_ms"],
             "at": at + "; " + timing, "card": card})
+        if name == "lowrank_linear":
+            kernels[-1]["launches_by_route"] = {
+                k: sum(r["routes"][name][k] for r in rounds)
+                for k in rounds[0]["routes"][name]}
     admit = next(r for r in scan_rows if r["shape"] == "admission prefill")
     kernels.append({
         "name": "rwkv6_scan", "route": "cuda",

@@ -17,14 +17,40 @@ rank-r split-matmul delta from stacked ``(G, ·, r)`` factor tables,
       y[b] = scales[g]·(x[b] @ W) + (x[b] @ bases[g]) @ rts[g]
 
 with ``g = ids[b]`` (``csrc/lowrank_linear_batched.cu``). Both kernels are
-CUDA C++ for sm_90a sharing ``csrc/lowrank_tiles.cuh`` (the sources say
-what bounds them and how they are laid out), built with ``nvcc`` at first
-launch and called through ``ctypes`` on PyTorch's current stream.
+CUDA C++ for sm_90a sharing ``csrc/lowrank_tiles.cuh``, built with ``nvcc``
+at first launch and called through ``ctypes`` on PyTorch's current stream.
+
+Each call takes one of three routes, chosen here from its arguments alone
+(:func:`route`) before anything launches; a route that fails to build or
+launch raises:
+
+* ``tc_gemm`` — bf16 x and W, at least :data:`TC_MIN_ROWS` rows (prefill,
+  training). The base GEMM's operations bound it at the bf16 tensor-core
+  rate: TMA loads into a ring of up to 8 shared-memory stages, ``wgmma``
+  with fp32 accumulation, the rank-r shrink in its own FP32-core pass,
+  and a fused epilogue whose rank-r delta is computed while the ring
+  fills. :func:`plan` picks the row tile (64 or 128) and a K split so
+  that the output tiles fill the card.
+* ``tc_decode`` — bf16 x and W, fewer rows (decode). The bytes of W bound
+  it: W's columns are the tensor-core M side (swap-AB), W streams through
+  a TMA ring in blocks of 128 columns x a K chunk, split so that the
+  blocks fill the card in one wave, the shrink is folded into the same
+  grid, and a reduce pass sums the fp32 partials in a fixed order and
+  applies the epilogue.
+* ``fp32`` — any fp32 operand, m or n not a multiple of 8, a base pointer
+  of x, W or y not 16-byte aligned (TMA's rule), or r above
+  :data:`MAX_TC_RANK`: exact fp32 products on the FP32 cores. No ported
+  path sends such a call.
+
+``.routes`` on each wrapper counts the launches per route beside
+``.launches``. The sources say what bounds each route on this card and
+how the design meets it.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -33,8 +59,18 @@ from . import _build
 RIGHT = "right"
 LEFT = "left"
 
-_BM, _BN, _BK = 64, 64, 16   # the GEMM tile of the .cu source
-_MIN_K_TILES = 4    # K tiles each split keeps, at least
+ROUTES = ("tc_gemm", "tc_decode", "fp32")
+_ROUTE_CODE = {"fp32": 0, "tc_gemm": 1, "tc_decode": 2}
+TC_MIN_ROWS = 64        # rows from which the tensor-core GEMM route runs
+MAX_TC_RANK = 64        # the tc routes stage r-wide rows in shared memory
+_BM, _BN, _BK = 64, 64, 16   # the fp32 route's GEMM tile
+_MIN_K_TILES = 4    # K tiles each fp32 split keeps, at least
+_TC_BN, _TC_BK = 128, 64     # tc_gemm: output columns a block, K a stage
+_TC_MIN_SPLIT_TILES = 16     # K tiles each tc_gemm split keeps, at least
+_TC_MAX_SPLIT_OUT = 1 << 17  # outputs up to which a K split pays its reduce
+_TD_BN = 128                 # tc_decode: W columns a block
+_TS_ROWS, _TS_KC = 32, 128   # tc_gemm shrink: rows a block, K a chunk
+_MAX_PIECES = 32             # tc_gemm shrink: K pieces, at most
 
 
 def infer_side(w_shape, basis_shape, rt_shape) -> str:
@@ -51,17 +87,100 @@ def infer_side(w_shape, basis_shape, rt_shape) -> str:
 
 
 def split_k(rows: int, m: int, n: int, sms: int):
-    """(ksplit, k_chunk): split K across blocks only when the output tiles
-    alone leave some of the card's ``sms`` multiprocessors idle (decode,
-    short prefill), aiming at two blocks per SM and keeping
-    ≥ ``_MIN_K_TILES`` K tiles per split. k_chunk is a multiple of the K
-    tile."""
+    """(ksplit, k_chunk) of the fp32 route: split K across blocks only when
+    the output tiles alone leave some of the card's ``sms``
+    multiprocessors idle (decode, short prefill), aiming at two blocks per
+    SM and keeping ≥ ``_MIN_K_TILES`` K tiles per split. k_chunk is a
+    multiple of the K tile."""
     tiles = -(-rows // _BM) * -(-n // _BN)
     k_tiles = -(-m // _BK)
     want = -(-2 * sms // tiles) if tiles < sms else 1
     ksplit = max(1, min(want, k_tiles // _MIN_K_TILES))
     k_chunk = -(-k_tiles // ksplit) * _BK
     return -(-m // k_chunk), k_chunk
+
+
+def route(rows: int, m: int, n: int, r: int, x_dtype, w_dtype,
+          ptrs=()) -> str:
+    """The route of one call (see the module docstring): ``tc_gemm`` or
+    ``tc_decode`` for bf16 x and W with m and n multiples of 8, r ≤
+    :data:`MAX_TC_RANK` and every pointer in ``ptrs`` (x, W, y) 16-byte
+    aligned, by rows against :data:`TC_MIN_ROWS`; else ``fp32``."""
+    if (x_dtype == torch.bfloat16 and w_dtype == torch.bfloat16
+            and m % 8 == 0 and n % 8 == 0 and r <= MAX_TC_RANK
+            and all(p % 16 == 0 for p in ptrs)):
+        return "tc_gemm" if rows >= TC_MIN_ROWS else "tc_decode"
+    return "fp32"
+
+
+class Plan(NamedTuple):
+    """How one call is cut. ``bm``: tc_gemm's row tile (64 or 128),
+    tc_decode's padded rows (16 or 64), the fp32 tile (64). K splits into
+    ``ksplit`` chunks of ``k_chunk`` (a multiple of the route's K tile)
+    with fp32 partials when ``ksplit > 1`` or on tc_decode. The shrink
+    leaves ``pieces`` fp32 partials of s; tc_gemm's cover ``piece`` K
+    values each and a further slot holds their sum; tc_decode's are one
+    a block, ``pieces // ksplit`` equal parts of each K chunk."""
+    route: str
+    bm: int
+    ksplit: int
+    k_chunk: int
+    pieces: int
+    piece: int
+
+    @property
+    def partials(self) -> bool:
+        return self.route == "tc_decode" or self.ksplit > 1
+
+    @property
+    def s_slots(self) -> int:
+        return self.pieces + (self.route == "tc_gemm")
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(route_: str, rows: int, t: int, m: int, n: int, sms: int) -> Plan:
+    """Cut one call of ``rows`` rows (sequences of ``t`` rows; t = rows for
+    one adapter) on ``route_`` for a card of ``sms`` multiprocessors.
+
+    tc_gemm: row tiles of 128 when they alone give half the card output
+    tiles, else 64; a K split only when the tiles fill less than half the
+    card and the output is small (the reduce pass costs about as much as
+    the GEMM at 2^19 outputs), keeping ≥ 16 K tiles (1024 values) a
+    split; row tiles vary fastest in the grid. The shrink's 32-row blocks
+    take up to 32 K pieces of whole 128-value chunks towards four blocks
+    per SM.
+    tc_decode: 128 W columns a block, K split in whole tiles so that the
+    blocks fill the card's resident slots (two a SM at 16 rows, one at
+    64) in one wave; every block computes one piece of the shrink, an
+    equal part of its K chunk. fp32: :func:`split_k`.
+    """
+    if route_ == "tc_gemm":
+        bm = 128 if -(-rows // 128) * -(-n // _TC_BN) >= sms // 2 else 64
+        tiles = -(-rows // bm) * -(-n // _TC_BN)
+        k_tiles = -(-m // _TC_BK)
+        ksplit = 1
+        if 2 * tiles < sms and rows * n <= _TC_MAX_SPLIT_OUT:
+            ksplit = max(1, min(-(-sms // tiles),
+                                k_tiles // _TC_MIN_SPLIT_TILES))
+        k_chunk = -(-k_tiles // ksplit) * _TC_BK   # whole tiles, none empty
+        ksplit = -(-m // k_chunk)
+        row_blocks = (rows // t) * -(-t // _TS_ROWS)
+        chunks = -(-m // _TS_KC)
+        want = max(1, min(_MAX_PIECES, -(-4 * sms // row_blocks), chunks))
+        piece = -(-chunks // want) * _TS_KC
+        return Plan(route_, bm, ksplit, k_chunk, -(-m // piece), piece)
+    if route_ == "tc_decode":
+        nr = 16 if rows <= 16 else 64
+        cols = -(-n // _TD_BN)
+        k_tiles = -(-m // _TC_BK)
+        slots = sms * (2 if nr == 16 else 1)   # blocks resident at once
+        per = -(-k_tiles // max(1, slots // cols))   # K tiles a chunk
+        ksplit, k_chunk = -(-k_tiles // per), per * _TC_BK
+        return Plan(route_, nr, ksplit, k_chunk, ksplit * cols, 0)
+    if route_ != "fp32":
+        raise ValueError(f"unknown route {route_!r}: one of {ROUTES}")
+    ksplit, k_chunk = split_k(rows, m, n, sms)
+    return Plan(route_, _BM, ksplit, k_chunk, 1, m)
 
 
 @functools.lru_cache(maxsize=None)
@@ -73,7 +192,7 @@ def _lib():
     lib = _build.load("lowrank_linear_batched")
     fn = lib.lowrank_linear_batched_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 15
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -83,10 +202,19 @@ def _lib_single():
     lib = _build.load("lowrank_linear")
     fn = lib.lowrank_linear_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 13
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _scratch(p: Plan, rows: int, n: int, r: int, dev):
+    """The shrink pieces (s_slots, rows, r) and, where the plan splits K
+    or streams, the GEMM partials (ksplit, rows, n), both fp32."""
+    s = torch.empty((p.s_slots, rows, r), dtype=torch.float32, device=dev)
+    part = (torch.empty((p.ksplit, rows, n), dtype=torch.float32, device=dev)
+            if p.partials else None)
+    return s, part
 
 
 _FLOATS = (torch.float32, torch.bfloat16)
@@ -109,7 +237,8 @@ def lowrank_linear(x, w, basis, rt, scale, *, side=None):
     card (read there, no host sync). Returns y (..., t, n) in
     ``torch.result_type(x, w)``. Does not synchronise; raises on anything
     the kernel does not take and if the launch reports an error.
-    ``lowrank_linear.launches`` counts the launches.
+    ``lowrank_linear.launches`` counts the launches and
+    ``lowrank_linear.routes`` them by route.
     """
     side = side or infer_side(w.shape, basis.shape, rt.shape)
     dev = x.device
@@ -137,24 +266,28 @@ def lowrank_linear(x, w, basis, rt, scale, *, side=None):
     rows = x.numel() // m if m else 0
     if rows == 0 or n == 0:
         return y
-    s = torch.empty((rows, r), dtype=torch.float32, device=dev)
-    ksplit, k_chunk = split_k(rows, m, n, _sm_count(dev))
-    partial = (torch.empty((ksplit, rows, n), dtype=torch.float32,
-                           device=dev) if ksplit > 1 else None)
+    which = route(rows, m, n, r, x.dtype, w.dtype,
+                  (x.data_ptr(), w.data_ptr(), y.data_ptr()))
+    p = plan(which, rows, rows, m, n, _sm_count(dev))
+    s, partial = _scratch(p, rows, n, r, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib_single()(
         x.data_ptr(), w.data_ptr(), basis.data_ptr(), rt.data_ptr(),
         scale.data_ptr(), y.data_ptr(), s.data_ptr(),
         None if partial is None else partial.data_ptr(), rows, m, n, r,
         0 if side == RIGHT else 1, int(x.dtype == torch.bfloat16),
-        int(w.dtype == torch.bfloat16), ksplit, k_chunk, stream)
+        int(w.dtype == torch.bfloat16), _ROUTE_CODE[which], p.bm, p.ksplit,
+        p.k_chunk, p.pieces, p.piece, stream)
     if err != 0:
-        raise RuntimeError(f"lowrank_linear launch failed: CUDA error {err}")
+        raise RuntimeError(f"lowrank_linear launch failed on route {which}: "
+                           f"CUDA error {err}")
     lowrank_linear.launches += 1
+    lowrank_linear.routes[which] += 1
     return y
 
 
 lowrank_linear.launches = 0
+lowrank_linear.routes = dict.fromkeys(ROUTES, 0)
 
 
 def lowrank_linear_batched(x, w, bases, rts, scales, ids, *, side=None):
@@ -165,7 +298,7 @@ def lowrank_linear_batched(x, w, bases, rts, scales, ids, *, side=None):
     ids (B,) int32. Returns y in ``torch.result_type(x, w)``. Does not
     synchronise; raises on anything the kernel does not take and if the
     launch reports an error. ``lowrank_linear_batched.launches`` counts
-    the launches.
+    the launches and ``.routes`` them by route.
     """
     side = side or infer_side(w.shape, bases.shape[1:], rts.shape[1:])
     dev = x.device
@@ -200,10 +333,10 @@ def lowrank_linear_batched(x, w, bases, rts, scales, ids, *, side=None):
     rows = b * t
     if rows == 0 or n == 0:
         return y
-    s = torch.empty((rows, r), dtype=torch.float32, device=dev)
-    ksplit, k_chunk = split_k(rows, m, n, _sm_count(dev))
-    partial = (torch.empty((ksplit, rows, n), dtype=torch.float32,
-                           device=dev) if ksplit > 1 else None)
+    which = route(rows, m, n, r, x.dtype, w.dtype,
+                  (x.data_ptr(), w.data_ptr(), y.data_ptr()))
+    p = plan(which, rows, t, m, n, _sm_count(dev))
+    s, partial = _scratch(p, rows, n, r, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib()(x.data_ptr(), w.data_ptr(), bases.data_ptr(),
                  rts.data_ptr(), scales.data_ptr(), ids.data_ptr(),
@@ -211,12 +344,15 @@ def lowrank_linear_batched(x, w, bases, rts, scales, ids, *, side=None):
                  None if partial is None else partial.data_ptr(),
                  rows, t, m, n, r, g, 0 if side == RIGHT else 1,
                  int(x.dtype == torch.bfloat16),
-                 int(w.dtype == torch.bfloat16), ksplit, k_chunk, stream)
+                 int(w.dtype == torch.bfloat16), _ROUTE_CODE[which], p.bm,
+                 p.ksplit, p.k_chunk, p.pieces, p.piece, stream)
     if err != 0:
-        raise RuntimeError(f"lowrank_linear_batched launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"lowrank_linear_batched launch failed on route "
+                           f"{which}: CUDA error {err}")
     lowrank_linear_batched.launches += 1
+    lowrank_linear_batched.routes[which] += 1
     return y
 
 
 lowrank_linear_batched.launches = 0
+lowrank_linear_batched.routes = dict.fromkeys(ROUTES, 0)

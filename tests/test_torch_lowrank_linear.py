@@ -127,15 +127,145 @@ def test_infer_side_matches_jax():
 
 @pytest.mark.parametrize("rows,m,n", [(8, 1024, 1024), (8, 1024, 2816),
                                       (8, 2816, 1024), (128, 1024, 1024),
-                                      (1024, 2816, 1024), (3, 40, 24)])
+                                      (1024, 2816, 1024), (3, 40, 24),
+                                      (17, 1032, 520), (100, 40, 24),
+                                      (1, 7, 5), (64, 1024, 8)])
 def test_split_k_covers_k_in_whole_tiles(rows, m, n):
-    """The K split handed to the kernel: chunks are whole K tiles, cover
-    K exactly once, and only small row counts split."""
+    """The fp32 route's K split: chunks are whole K tiles, cover K exactly
+    once, and only small row counts split."""
     ksplit, k_chunk = tll.split_k(rows, m, n, sms=132)
     assert k_chunk % 16 == 0 and ksplit >= 1
     assert (ksplit - 1) * k_chunk < m <= ksplit * k_chunk
     if rows >= 1024:
         assert ksplit == 1
+    p = tll.plan("fp32", rows, rows, m, n, sms=132)
+    assert (p.ksplit, p.k_chunk, p.pieces) == (ksplit, k_chunk, 1)
+
+
+# (m, n) of every adapted projection on the ported paths
+_PATH_MN = [(1024, 1024), (1024, 2816), (2816, 1024),      # qwen1.5-0.5b
+            (2048, 2048), (2048, 7168), (7168, 2048),      # rwkv6-1.6b
+            (4608, 4608), (4608, 512), (4608, 18432),      # starcoder2-7b
+            (18432, 4608)]
+# (B, t) of every launch: serving decode, generate prefill, SlotServer's
+# admission prefill (full and ragged), the training forward
+_PATH_BT = [(8, 1), (8, 128), (1, 128), (1, 100), (4, 128)]
+# the edges of each route: rows 1, 8, 16, 17, TC_MIN_ROWS - 1, TC_MIN_ROWS,
+# TC_MIN_ROWS + 1, t = 100 tiles spanning two sequences, 1024 rows; n not a
+# multiple of the N tile, m not a multiple of the K tile, a short last K
+# chunk
+_EDGE = [(1, 1, 1024, 1024), (8, 1, 1032, 520), (16, 1, 4608, 4608),
+         (17, 1, 1024, 2816), (1, 63, 2816, 1024), (1, 64, 1024, 1024),
+         (1, 65, 1032, 520), (8, 100, 1024, 1024), (8, 128, 2816, 1024),
+         (2, 17, 1032, 520), (65, 1, 1024, 1024), (8, 128, 4104, 136)]
+
+
+def _chunk_ranges(m, ksplit, k_chunk):
+    """K ranges of the kernel's blocks z: [z k_chunk, min(m, (z+1) k_chunk))."""
+    return [(z * k_chunk, min(m, (z + 1) * k_chunk)) for z in range(ksplit)]
+
+
+def _assert_partition(ranges, lo, hi):
+    """The ranges, in order, cover [lo, hi) once (empty ones allowed)."""
+    pos = lo
+    for a, b in ranges:
+        if b > a:
+            assert a == pos, (ranges, lo, hi)
+            pos = b
+    assert pos == hi, (ranges, lo, hi)
+
+
+@pytest.mark.parametrize("b,t,m,n", [(b, t, m, n) for (m, n) in _PATH_MN
+                                     for (b, t) in _PATH_BT] + _EDGE)
+def test_plan_covers_rows_n_and_k_in_whole_tiles(b, t, m, n):
+    """The tile and split plan of the call's route covers rows, n and K
+    once, in whole tiles: K chunks are whole 64-wide TMA tiles (only the
+    last may run past m, where TMA reads zeros), none is empty, the
+    shrink's K pieces and row blocks partition K and each sequence's rows,
+    and the output tiles fill the card where the shape allows."""
+    rows, sms = b * t, 132
+    which = tll.route(rows, m, n, 16, torch.bfloat16, torch.bfloat16)
+    p = tll.plan(which, rows, t, m, n, sms)
+    assert p.route == which
+    assert p.k_chunk % 64 == 0 and p.ksplit >= 1
+    chunks = _chunk_ranges(m, p.ksplit, p.k_chunk)
+    assert all(b_ > a for a, b_ in chunks)
+    _assert_partition(chunks, 0, m)
+    if which == "tc_decode":
+        assert rows < tll.TC_MIN_ROWS and rows <= p.bm and p.bm in (16, 64)
+        cols = -(-n // 128)
+        assert p.pieces == p.ksplit * cols   # a shrink piece a block
+        sub = cols
+        for kb, ke in chunks:            # each chunk's sub-pieces
+            step = -(-(ke - kb) // sub)
+            _assert_partition([(kb + i * step, min(ke, kb + (i + 1) * step))
+                               for i in range(sub)], kb, ke)
+        k_tiles = -(-m // 64)
+        slots = sms * (2 if p.bm == 16 else 1)   # one wave of blocks
+        if cols < slots:
+            assert cols * p.ksplit <= slots
+            assert 2 * cols * p.ksplit >= slots or p.ksplit == k_tiles
+        else:
+            assert p.ksplit == 1
+        assert p.partials
+    else:
+        assert which == "tc_gemm" and rows >= tll.TC_MIN_ROWS
+        assert p.bm in (64, 128)
+        tiles = -(-rows // p.bm) * -(-n // 128)
+        if rows * n <= tll._TC_MAX_SPLIT_OUT:
+            assert tiles * p.ksplit >= min(sms // 2, tiles * max(
+                1, -(-m // 64) // 16))
+        if p.ksplit > 1:
+            assert p.k_chunk >= 16 * 64 and 2 * tiles < sms
+            assert rows * n <= tll._TC_MAX_SPLIT_OUT
+        assert p.partials == (p.ksplit > 1)
+        assert p.s_slots == p.pieces + 1     # the pieces and their sum
+        assert p.piece % 128 == 0            # whole shrink chunks
+        _assert_partition([(f * p.piece, min(m, (f + 1) * p.piece))
+                           for f in range(p.pieces)], 0, m)
+        per_seq = -(-t // 32)            # shrink row blocks of one sequence
+        for q in range(b):
+            _assert_partition([(q * t + i * 32, min((q + 1) * t,
+                                                    q * t + (i + 1) * 32))
+                               for i in range(per_seq)], q * t, (q + 1) * t)
+
+
+@pytest.mark.parametrize("b,t", _PATH_BT)
+@pytest.mark.parametrize("m,n", _PATH_MN)
+def test_route_of_every_path_call_is_a_tensor_core_route(b, t, m, n):
+    """Every (rows, m, n) the ported paths launch is bf16 with m, n
+    multiples of 8 and rank 8 or 16: decode (8 rows) takes tc_decode,
+    every prefill and the training forward (100-1024 rows) tc_gemm."""
+    rows = b * t
+    ptrs = (0x7f0000000000, 0x7f0000100000, 0x7f0000200000)
+    for r in (8, 16):
+        which = tll.route(rows, m, n, r, torch.bfloat16, torch.bfloat16,
+                          ptrs)
+        assert which == ("tc_decode" if rows < tll.TC_MIN_ROWS
+                         else "tc_gemm")
+
+
+@pytest.mark.parametrize("case,want", [
+    (dict(), "tc_gemm"),
+    (dict(rows=63), "tc_decode"),
+    (dict(rows=1), "tc_decode"),
+    (dict(x_dtype=torch.float32), "fp32"),
+    (dict(w_dtype=torch.float32), "fp32"),
+    (dict(m=1028), "fp32"),                   # m not a multiple of 8
+    (dict(n=517), "fp32"),                    # n not a multiple of 8
+    (dict(r=65), "fp32"),                     # rank above MAX_TC_RANK
+    (dict(ptrs=(0x1002, 0x2000, 0x3000)), "fp32"),   # x view 2 B off
+    (dict(ptrs=(0x1000, 0x2008, 0x3000)), "fp32"),   # W 8 B off
+    (dict(ptrs=(0x1000, 0x2000, 0x3004)), "fp32"),   # y 4 B off
+    (dict(rows=8, ptrs=(0x1010, 0x2020, 0x3030)), "tc_decode"),
+])
+def test_route_rules(case, want):
+    """The route follows dtype, m and n divisibility by 8, the rank limit
+    and 16-byte alignment of x, W and y (TMA's rule), then rows."""
+    args = dict(rows=128, m=1024, n=1024, r=16, x_dtype=torch.bfloat16,
+                w_dtype=torch.bfloat16, ptrs=(0x1000, 0x2000, 0x3000))
+    args.update(case)
+    assert tll.route(**args) == want
 
 
 def test_device_rules():
@@ -157,3 +287,4 @@ def test_device_rules():
     assert torch.equal(plain, tops.lowrank_linear_batched(
         x, w, bases, rts, scales, ids))
     assert tll.lowrank_linear_batched.launches == 0
+    assert sum(tll.lowrank_linear_batched.routes.values()) == 0
