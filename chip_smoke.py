@@ -19,7 +19,8 @@ weights from ``--seed``):
 * serving starcoder2-7b (32 layers, d 4608, 36 q heads on 4 kv heads of
   128, sliding window 4096): the same serving run with 8 adapters on its
   six target projections, and one long-context prefill of 8192 tokens on
-  the base weights, where the window acts.
+  the base weights, where the window acts, run twice: over an 8200-slot
+  cache and over a ring of the 4096-token window (greedy tokens equal).
 
 Every dense prefill's attention goes through ``flash_attention`` (qwen
 and starcoder2), decode's through the plain masked attention over the
@@ -27,10 +28,11 @@ KV cache.
 
 Each kernel is held against its plain PyTorch version at every shape its
 path launches (a ``ShapeLog`` fails the run on an unchecked shape) and,
-for the two low-rank applies, at the edges of each of their routes
-(``tc_gemm``, ``tc_decode``, ``fp32``); the launch counters show each
-path went through its kernels, and the route counters that every
-low-rank launch on a path took a tensor-core route; each path is
+for the kernels with routes, at the edges of each route (the low-rank
+applies' ``tc_gemm``, ``tc_decode``, ``fp32``; flash_attention's ``tc``
+and ``simt``); the launch counters show each path went through its
+kernels, and the route counters that every low-rank and flash launch on
+a path took a tensor-core route; each path is
 compared end to end against a run with every kernel's plain version
 (``ops.plain_kernels``), and each kernel is timed against its bound.
 Every phase prints JSON lines; any failure raises and the script exits
@@ -163,7 +165,8 @@ def ptxas_summary(log: str):
             short = re.search(r"(fp32_shrink_kernel|fp32_gemm_kernel|"
                               r"reduce_kernel|tc_gemm_kernel|"
                               r"tc_decode_kernel|right_kernel|"
-                              r"left_kernel|wkv6_kernel|flash_kernel)"
+                              r"left_kernel|wkv6_kernel|simt_kernel|"
+                              r"tc_kernel)"
                               r"I(.*?)EEv", name)
             plain = re.search(r"(jacobi_kernel|tc_shrink_kernel|"
                               r"tc_sum_kernel)", name)
@@ -465,12 +468,18 @@ def _check_launches(arch, launches, expected):
               "one it does not use")
 
 
+# The routes off the tensor cores: the low-rank applies' fp32 and
+# flash_attention's simt. No ported path may take them.
+SLOW_ROUTES = ("fp32", "simt")
+
+
 def _check_tc_routes(path, launches, routes):
-    """Every launch of the low-rank applies on a path went through a
-    tensor-core route (tc_gemm or tc_decode), none through fp32."""
+    """Every launch on a path of a kernel with routes went through a
+    tensor-core route (the low-rank applies' tc_gemm or tc_decode,
+    flash_attention's tc), none through SLOW_ROUTES."""
     for name, by_route in routes.items():
-        check(by_route["fp32"] == 0 and by_route["tc_gemm"]
-              + by_route["tc_decode"] == launches[name],
+        check(sum(by_route.get(k, 0) for k in SLOW_ROUTES) == 0 and
+              sum(by_route.values()) == launches[name],
               f"{path}: {name} routes {by_route} for {launches[name]} "
               "launches: a path call left the tensor-core routes")
 
@@ -794,15 +803,18 @@ def phase_times(gen, card, shapes=SHAPES, arch="qwen1.5-0.5b"):
 # ------------------------------------------------- flash attention --
 
 def _flash_case(gen, b, lq, h, hkv, d, lk=None, dtype=torch.bfloat16,
-                strided=False):
+                strided=False, misaligned=False):
     """q (b, lq, h, d), k and v (b, lk, hkv, d) ~ N(0, 1) on the card (the
     scores then ~ N(0, 1) after the 1/sqrt(D) scale); ``strided`` takes q
-    as every other head of a wider tensor, a non-contiguous layout."""
+    as every other head of a wider tensor, a non-contiguous layout;
+    ``misaligned`` q as a view 2 bytes past a 16-byte boundary."""
     lk = lq if lk is None else lk
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
     q = rnd(b, lq, 2 * h, d)[:, :, ::2] if strided else rnd(b, lq, h, d)
+    if misaligned:
+        q = _misaligned(q)
     return dict(q=q, k=rnd(b, lk, hkv, d), v=rnd(b, lk, hkv, d))
 
 
@@ -844,14 +856,26 @@ FLASH_PATH = [
 ]
 
 
+def _flash_module():
+    """The kernel module (the package attribute of its name is ops'
+    dispatching function)."""
+    import importlib
+    return importlib.import_module("repro_torch.kernels.flash_attention")
+
+
 def phase_flash_kernel_checks(gen):
     """``flash_attention`` against its plain version at every shape the
     dense prefill paths launch, plus the edges: Lq < Lk (suffix-aligned),
-    Lq > Lk (queries that see no key), a window smaller than a key tile,
-    fp32 at both head sizes, ``causal=False``, and a strided q. Returns the
-    worst error and the keys checked."""
+    Lq > Lk (queries that see no key), windows inside a key tile, fp32 at
+    both head sizes, ``causal=False``, a strided q; for the tc route Lk
+    not a multiple of its 128-key tile, Lq of 1, 63, 64 and 65, windows of
+    1, 127 and 129, D 64 and 128 on both query tiles (64 and 128 rows);
+    fp32 and a misaligned q view on the simt route. Each case states its
+    route and fails on another. Returns the worst error and the keys
+    checked."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention as fk
+    fa = _flash_module()
+    fk = fa.flash_attention
     cases = [dict(b=b, lq=lq, lk=lk, h=h, hkv=hkv, d=d, window=w)
              for _, b, lq, lk, h, hkv, d, w in FLASH_PATH]
     cases += [dict(b=2, lq=100, lk=300, h=SC_H, hkv=SC_KV, d=128, window=128),
@@ -865,7 +889,21 @@ def phase_flash_kernel_checks(gen):
               dict(b=2, lq=90, lk=200, h=SC_H, hkv=SC_KV, d=128,
                    causal=False),
               dict(b=2, lq=128, lk=128, h=SC_H, hkv=SC_KV, d=128,
-                   window=4096, strided=True)]
+                   window=4096, strided=True),
+              # tc edges
+              dict(b=1, lq=1, lk=300, h=8, hkv=2, d=128),
+              dict(b=1, lq=63, lk=63, h=8, hkv=2, d=64),
+              dict(b=1, lq=64, lk=200, h=8, hkv=2, d=128, window=64),
+              dict(b=1, lq=65, lk=65, h=8, hkv=2, d=128, window=1),
+              dict(b=2, lq=300, lk=300, h=8, hkv=2, d=128, window=127),
+              dict(b=2, lq=300, lk=300, h=8, hkv=2, d=64, window=129),
+              dict(b=4, lq=300, lk=300, h=16, hkv=16, d=64, window=129),
+              dict(b=1, lq=1000, lk=1000, h=SC_H, hkv=SC_KV, d=128,
+                   window=300),
+              dict(b=1, lq=1000, lk=1100, h=SC_H, hkv=SC_KV, d=128,
+                   window=129),
+              dict(b=2, lq=128, lk=128, h=SC_H, hkv=SC_KV, d=128,
+                   window=4096, misaligned=True)]
     worst, checked = 0.0, set()
     for spec in cases:
         spec = dict(spec)
@@ -873,8 +911,12 @@ def phase_flash_kernel_checks(gen):
         window = spec.pop("window", 0)
         c = _flash_case(gen, **spec)
         args = (c["q"], c["k"], c["v"])
+        stated = ("simt" if spec.get("dtype", torch.bfloat16) != torch.bfloat16
+                  or spec.get("misaligned") else "tc")
+        before = dict(fk.routes)
         o = fk(*args, causal=causal, window=window)
         torch.cuda.synchronize()
+        took = _route_taken(fk, before)
         want = ref.flash_attention_ref(*args, causal=causal, window=window)
         check(o.dtype == want.dtype and o.shape == want.shape,
               f"flash_attention output {o.dtype}{tuple(o.shape)} vs plain "
@@ -883,15 +925,21 @@ def phase_flash_kernel_checks(gen):
         scale = want.float().abs().max().item()
         tol = (FLASH_TOL * scale if o.dtype == torch.float32
                else bf16_ulp(scale))
+        p = fa.plan(took, c["q"].shape[0], c["q"].shape[1], c["q"].shape[2],
+                    fa._sm_count(c["q"].device))
         emit({"phase": "flash_kernel_check", "kernel": "flash_attention",
               "q": list(c["q"].shape), "k": list(c["k"].shape),
               "dtype": str(o.dtype).split(".")[1], "causal": causal,
               "window": window, "q_contiguous": c["q"].is_contiguous(),
-              "max_abs_err": err, "out_scale": scale, "tol": tol})
+              "misaligned_q": bool(spec.get("misaligned")), "route": took,
+              "bq": p.bq, "max_abs_err": err, "out_scale": scale,
+              "tol": tol})
+        check(took == stated, f"flash_attention took route {took} at q "
+              f"{tuple(c['q'].shape)} {o.dtype}, stated {stated}")
         check(bool(torch.isfinite(o).all()) and err <= tol,
               f"flash_attention disagrees at q {tuple(c['q'].shape)} k "
               f"{tuple(c['k'].shape)} {o.dtype} causal={causal} "
-              f"window={window}: {err} > {tol}")
+              f"window={window} ({took}): {err} > {tol}")
         worst = max(worst, err)
         checked.add(_flash_key(*args, causal=causal, window=window))
         del c, args, o, want
@@ -901,8 +949,12 @@ def phase_flash_kernel_checks(gen):
 def phase_long_prefill(seed, card, checked):
     """starcoder2-7b on its base weights: ``generate`` with one prompt of
     LONG_PROMPT tokens (twice the window), ``cache_len`` LONG_PROMPT + 8
-    and LONG_NEW new tokens, counted; then the same prefill and decode
-    timed on their own (fenced host clock)."""
+    and LONG_NEW new tokens, counted; then the same with ``cache_len`` the
+    4096-slot window, the ring layout the reference prescribes for a
+    sliding-window arch, counted on its own: its greedy tokens must be
+    those of the full cache. Then the prefill and decode of both layouts
+    timed on their own (fenced host clock), and the ring's logit gap to
+    the full cache reported."""
     from repro_torch.launch import serve
     from repro_torch.models import model as model_lib
     arch = "starcoder2-7b"
@@ -916,51 +968,71 @@ def phase_long_prefill(seed, card, checked):
     rng = np.random.default_rng(seed + 7)
     prompt = rng.integers(0, cfg.vocab_size, (1, LONG_PROMPT),
                           dtype=np.int32)
-    cache = LONG_PROMPT + 8
-    _zero_counts()
-    with ShapeLog(SERVE_LOG) as log:
-        out = serve.generate(params, cfg, prompt, LONG_NEW, cache)
-        torch.cuda.synchronize()
-    launches = _launch_counts()
-    _check_shapes(arch, log.seen, checked)
-    _check_launches(arch, launches, {"flash_attention": cfg.n_layers})
+    cache, ring = LONG_PROMPT + 8, cfg.sliding_window
+    outs, counts = {}, {}
+    for slots in (cache, ring):
+        _zero_counts()
+        with ShapeLog(SERVE_LOG) as log:
+            outs[slots] = serve.generate(params, cfg, prompt, LONG_NEW,
+                                         slots)
+            torch.cuda.synchronize()
+        counts[slots] = (_launch_counts(), _route_counts())
+        _check_shapes(arch, log.seen, checked)
+        _check_launches(arch, counts[slots][0],
+                        {"flash_attention": cfg.n_layers})
+        _check_tc_routes(f"{arch} long prefill, {slots} slots",
+                         *counts[slots])
+    out = outs[cache]
+    launches, routes = counts[cache]
     check(tuple(out.shape) == (1, LONG_PROMPT + LONG_NEW) and
           bool((out[0, :LONG_PROMPT].cpu() == torch.from_numpy(prompt[0]))
                .all()) and
           bool(((out >= 0) & (out < cfg.vocab_size)).all()),
           "long-prefill generate output has the wrong shape, prompt or range")
+    check(torch.equal(outs[ring], out), f"the {ring}-slot ring cache gives "
+          f"other greedy tokens than the {cache}-slot cache: "
+          f"{outs[ring][0, LONG_PROMPT:].tolist()} vs "
+          f"{out[0, LONG_PROMPT:].tolist()}")
 
     @torch.inference_mode()
-    def timed():
+    def timed(slots):
         toks = torch.as_tensor(prompt, device="cuda")
+        feed = out[:, LONG_PROMPT:].to(torch.int32)   # the same tokens
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        st = model_lib.init_decode_state(cfg, 1, cache, device="cuda")
+        st = model_lib.init_decode_state(cfg, 1, slots, device="cuda")
         logits, st = model_lib.prefill(params, cfg, toks, st)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        tok = torch.argmax(logits, -1).to(torch.int32)
-        for _ in range(LONG_NEW - 1):
-            logits, st = model_lib.decode_step(params, cfg, tok, st)
-            tok = torch.argmax(logits, -1).to(torch.int32)
+        seen = [logits.float()]
+        for i in range(LONG_NEW - 1):
+            logits, st = model_lib.decode_step(params, cfg, feed[:, i], st)
+            seen.append(logits.float())
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         check(bool(torch.isfinite(logits).all()), "long-prefill logits "
               "not finite")
-        return t1 - t0, t2 - t1
+        return t1 - t0, t2 - t1, torch.stack(seen)
 
-    pf, dc = timed()
+    pf, dc, full_logits = timed(cache)
+    ring_pf, ring_dc, ring_logits = timed(ring)
+    gap = ((ring_logits - full_logits).abs().max()
+           / full_logits.abs().max()).item()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     emit({"phase": "long_prefill_starcoder", "arch": arch, "card": card,
           "prompt": LONG_PROMPT, "window": cfg.sliding_window,
           "cache_len": cache, "new_tokens": LONG_NEW, "adapters": 0,
           "prefill_s": pf, "prefill_tok_s": LONG_PROMPT / pf,
           "decode_s": dc, "decode_tok_s": (LONG_NEW - 1) / dc,
-          "launches": launches, "peak_gib": peak,
-          "setup_peak_gib": setup_peak,
+          "ring_cache_len": ring, "ring_prefill_s": ring_pf,
+          "ring_decode_tok_s": (LONG_NEW - 1) / ring_dc,
+          "ring_logit_gap_rel": gap,
+          "launches": launches, "routes": routes,
+          "ring_launches": counts[ring][0], "ring_routes": counts[ring][1],
+          "peak_gib": peak, "setup_peak_gib": setup_peak,
           "resident_gib": torch.cuda.memory_allocated() / 2 ** 30,
           "kernel_shapes": {k: sorted(v) for k, v in log.seen.items()}})
-    return cfg, params, launches
+    return cfg, params, launches, routes
 
 
 def phase_flash_times(gen, card):
@@ -971,7 +1043,8 @@ def phase_flash_times(gen, card):
     ``enable_gqa``; where the window cuts (L > window) a boolean mask in
     place of ``is_causal``."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention as fk
+    fa = _flash_module()
+    fk = fa.flash_attention
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
     for label, b, lq, lk, h, hkv, d, window in FLASH_PATH:
@@ -984,8 +1057,12 @@ def phase_flash_times(gen, card):
             diff = pos[:, None] - pos[None, :]
             mask = (diff >= 0) & (diff < window)
         b_ms, b_by = flash_bound(sets[0], True, window)
+        c0 = sets[0]
+        which = fa.route(c0["q"], c0["k"], c0["v"], True, window)
         row = {"phase": "flash_times", "kernel": "flash_attention",
-               "card": card, "shape": label, "q": [b, lq, h, d],
+               "card": card, "shape": label, "route": which,
+               "bq": fa.plan(which, b, lq, h, fa._sm_count(c0["q"].device)).bq,
+               "q": [b, lq, h, d],
                "k": [b, lk, hkv, d], "window": window,
                "pairs_per_head": flash_pairs(lq, lk, True, window),
                "bound_ms": b_ms, "bound_by": b_by,
@@ -1635,7 +1712,7 @@ def main(argv=None) -> int:
     phase_parity(cfg, served, args.seed, phase="parity_starcoder")
     del served
     torch.cuda.empty_cache()
-    cfg, params, long_launches = phase_long_prefill(
+    cfg, params, long_launches, long_routes = phase_long_prefill(
         args.seed, card, {"flash_attention": flash_checked})
     phase_parity(cfg, params, args.seed, phase="parity_starcoder",
                  batch=1, prompt=LONG_PROMPT, adapters=False)
@@ -1750,6 +1827,10 @@ def main(argv=None) -> int:
             "serve": launches["flash_attention"],
             "serve_starcoder": sc_launches["flash_attention"],
             "long_prefill_starcoder": long_launches["flash_attention"]},
+        "launches_by_route": {
+            k: sum(rt["flash_attention"][k]
+                   for rt in (routes, sc_routes, long_routes))
+            for k in long_routes["flash_attention"]},
         "max_abs_err": flash_err,
         **{k: long_row[k] for k in ("ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms", "device_ms",

@@ -13,7 +13,9 @@ their plain PyTorch versions in ``ref``.
 * ``rwkv6_scan.rwkv6_scan`` — the RWKV6 WKV recurrence,
   ``csrc/rwkv6_scan.cu``;
 * ``flash_attention.flash_attention`` — causal GQA attention with a
-  sliding window, forward only, ``csrc/flash_attention.cu``.
+  sliding window, forward only, ``csrc/flash_attention.cu`` (its
+  tensor-core route shares ``csrc/hopper_ptx.cuh`` with
+  ``lowrank_tiles.cuh``).
 
 As in the JAX package, ``kernels.rwkv6_scan`` and
 ``kernels.flash_attention`` name the dispatching ``ops`` functions; a

@@ -5,8 +5,10 @@ Numerics follow the JAX package: scores and context accumulate in fp32,
 the softmax is fp32, and its weights are cast to the value dtype before the
 PV product. The KV cache is bf16 in every config, so decode rounds K, V and
 the weights through bf16 in both packages. Prefill with no autograd graph
-goes through the flash kernel instead (:func:`gqa_forward`), which keeps
-the weights in fp32 for PV, as the JAX package's flash kernel does.
+goes through ``kernels.ops.flash_attention`` instead (:func:`gqa_forward`):
+its plain version keeps the weights in fp32 for PV, as the JAX package's
+flash kernel does; the CUDA kernel's tensor-core route rounds them to bf16
+for its PV product.
 
 Unlike the JAX package, :func:`kv_cache_write` writes the cache tensors in
 place and returns the same :class:`KVCache`: a decode step then touches
@@ -199,11 +201,20 @@ def kv_cache_write(cache: KVCache, k_new, v_new, t0) -> KVCache:
 
     ``t0`` scalar (int or 0-d tensor): every row writes the same slots.
     ``t0`` (B,): per-row start positions, the continuous-batching layout
-    where each slot sits at its own depth."""
+    where each slot sits at its own depth.
+
+    A write longer than the ring (a prompt over a windowed cache) keeps
+    its last ``size`` positions, the ring's content after the whole write
+    in the JAX package: the earlier ones would be overwritten within the
+    same write, and one ``index_put_`` with repeated slots leaves the
+    winner undefined."""
     b, ln = k_new.shape[:2]
     size = cache.k.shape[1]
     dev = cache.k.device
-    steps = torch.arange(ln, device=dev)
+    skip = max(ln - size, 0)
+    k_new, v_new = k_new[:, skip:], v_new[:, skip:]
+    ln -= skip
+    steps = torch.arange(skip, skip + ln, device=dev)
     if isinstance(t0, torch.Tensor) and t0.ndim:
         pos = t0.long()[:, None] + steps[None, :]             # (B, Ln)
         slots = pos % size

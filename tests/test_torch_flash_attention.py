@@ -13,8 +13,17 @@ fp32 result is rounded once and a last-place difference can cross a
 rounding boundary. ``gqa_forward`` within 1e-5 of scale on both JAX
 branches (``attend``; ``blockwise_attend`` at ``attn_chunk`` 32 with a
 window of 16 at L = 64). The CUDA kernel itself runs only on the card
-(``chip_smoke.py``).
+(``chip_smoke.py``); here its route rules (every call of the ported paths
+on ``tc``, fp32 and layouts a tensor map does not describe on ``simt``)
+and its tile plan are checked: the grid runs every (query tile, batch
+row, q head) once, and each query tile's key-tile range holds every key
+its rows attend, as ``chip_smoke.flash_pairs`` counts them.
 """
+import functools
+import importlib.util
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -28,6 +37,10 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import flash_attention as fkernel
 from repro_torch.models import attention as tattn
+
+# the kernel module (``repro_torch.kernels.flash_attention`` the attribute
+# is ops' dispatching function)
+tfa = sys.modules["repro_torch.kernels.flash_attention"]
 
 FP32_TOL = 2e-6          # of the output scale
 GQA_TOL = 1e-5
@@ -185,6 +198,7 @@ def test_refusals():
     with pytest.raises(ValueError, match="head sizes"):
         fkernel(odd, odd, odd)
     assert fkernel.launches == 0
+    assert sum(fkernel.routes.values()) == 0
 
 
 def test_cuda_module_imports_without_nvcc(monkeypatch):
@@ -200,3 +214,177 @@ def test_cuda_module_imports_without_nvcc(monkeypatch):
         pytest.skip("a CUDA toolkit is installed at /usr/local/cuda")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         mod._lib()
+    assert mod.flash_attention.launches == 0
+    assert sum(mod.flash_attention.routes.values()) == 0
+
+
+# (B, Lq, Lk, H, Hkv, D, window) of every call the ported paths make
+# (chip_smoke.py FLASH_PATH): qwen1.5-0.5b admission and generate
+# prefills, starcoder2-7b's, its ragged 100-token admission and its
+# 8192-token long prefill.
+FLASH_PATH = [(1, 128, 128, 16, 16, 64, 0), (8, 128, 128, 16, 16, 64, 0),
+              (1, 128, 128, 36, 4, 128, 4096),
+              (1, 100, 100, 36, 4, 128, 4096),
+              (8, 128, 128, 36, 4, 128, 4096),
+              (1, 8192, 8192, 36, 4, 128, 4096)]
+SMS = 132      # an H100's multiprocessors
+
+
+def _bf16(*shape):
+    return torch.empty(shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", FLASH_PATH,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_route_of_every_path_call_is_tc(shape):
+    """Every call the ported paths make is bf16 with contiguous q, k, v:
+    the tensor-core route."""
+    b, lq, lk, h, hkv, d, window = shape
+    q, k, v = _bf16(b, lq, h, d), _bf16(b, lk, hkv, d), _bf16(b, lk, hkv, d)
+    assert tfa.route(q, k, v, True, window) == "tc"
+
+
+def test_route_of_gqa_forward_layouts_is_tc(monkeypatch):
+    """The q, k, v that ``gqa_forward`` hands to the kernel (heads split
+    by a reshape, RoPE applied) take the tc route in bf16, one kv head
+    included."""
+    seen = []
+    monkeypatch.setattr(tops, "flash_attention", lambda q, k, v, **kw: (
+        seen.append(tfa.route(q, k, v, **kw)), q)[1])
+    rng = np.random.default_rng(13)
+    for hkv in (2, 1):
+        p = {n: torch.from_numpy(a).to(torch.bfloat16)
+             for n, a in _gqa_params(rng, 256, 4, hkv, 64).items()}
+        x = torch.from_numpy(rng.standard_normal((2, 24, 256)).astype(
+            np.float32)).to(torch.bfloat16)
+        with torch.no_grad():
+            tattn.gqa_forward(p, x, torch.arange(24), n_heads=4, n_kv=hkv,
+                              head_dim=64, window=16)
+    assert seen == ["tc", "tc"]
+
+
+def _misaligned(*shape):
+    """bf16 values whose data starts 2 bytes past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    view = torch.empty(n + 8, dtype=torch.bfloat16)[1:n + 1].view(shape)
+    assert view.data_ptr() % 16 == 2
+    return view
+
+
+@pytest.mark.parametrize("case,want", [
+    ("contiguous", "tc"),
+    ("strided_q", "tc"),             # every other head of a wider tensor
+    ("one_kv_head", "tc"),           # size-1 dims read at index 0 only
+    ("fp32", "simt"),                # TF32 wgmma cannot hold 1e-5
+    ("misaligned_q", "simt"),        # base pointer 2 B off
+    ("misaligned_v", "simt"),
+    ("row_stride_off_16", "simt"),   # head stride 68 elements = 136 B
+    ("heads_outside_sequence", "simt"),   # a (B, H, L, D) transpose
+    ("no_keys", "simt"),             # Lk = 0: no tensor map of size 0
+])
+def test_route_rules(case, want):
+    """The route follows the dtype, Lk and whether a 4-D tensor map over
+    (D, H, L, B) describes each operand: 16-byte aligned base pointer and
+    strides, strides nested as in (B, L, H, D)."""
+    b, lq, lk, h, hkv, d = 2, 40, 40, 4, 2, 64
+    q, k, v = _bf16(b, lq, h, d), _bf16(b, lk, hkv, d), _bf16(b, lk, hkv, d)
+    if case == "strided_q":
+        q = _bf16(b, lq, 2 * h, d)[:, :, ::2]
+    elif case == "one_kv_head":
+        q = _bf16(1, lq, h, d)
+        k = v = _bf16(1, lk, 3, d)[:, :, 1:2]    # head stride 64, size 1
+    elif case == "fp32":
+        q, k, v = (t.float() for t in (q, k, v))
+    elif case == "misaligned_q":
+        q = _misaligned(b, lq, h, d)
+    elif case == "misaligned_v":
+        v = _misaligned(b, lk, hkv, d)
+    elif case == "row_stride_off_16":
+        q = _bf16(b, lq, h, d + 4)[..., :d]
+    elif case == "heads_outside_sequence":
+        q = _bf16(b, h, lq, d).transpose(1, 2)
+    elif case == "no_keys":
+        k, v = _bf16(b, 0, hkv, d), _bf16(b, 0, hkv, d)
+    assert tfa.route(q, k, v) == want
+
+
+@functools.lru_cache(maxsize=None)
+def _chip_smoke():
+    """The card script, for its count of attended pairs (``flash_pairs``,
+    what its bounds are computed from)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _plan_cases():
+    cases = [(b, lq, lk, h, hkv, w) for b, lq, lk, h, hkv, _, w in FLASH_PATH]
+    cases += [(2, 100, 300, 8, 2, 128), (2, 150, 70, 8, 2, 0),
+              (1, 150, 70, 4, 2, 40), (2, 200, 200, 6, 2, 20),
+              (1, 1, 300, 4, 1, 0), (1, 63, 63, 4, 2, 0),
+              (1, 65, 200, 4, 2, 1), (2, 300, 300, 4, 2, 127),
+              (2, 300, 300, 4, 2, 129), (1, 1000, 1000, 36, 4, 300)]
+    return cases
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("case", _plan_cases(),
+                         ids=lambda c: "-".join(map(str, c)))
+def test_plan_covers_every_tile_and_attended_key(case, causal):
+    """On both routes: the grid runs every (query tile, batch row, q head)
+    once, the q heads of one kv head side by side and the query tiles
+    from the last to the first; each query tile's key-tile range holds
+    every key its rows attend (the attended pairs inside the ranges add up
+    to ``flash_pairs``' count), every key when a row sees none, and no
+    tile without an attended key."""
+    b, lq, lk, h, hkv, window = case
+    if not causal:
+        window = 0
+    for which in tfa.ROUTES:
+        p = tfa.plan(which, b, lq, h, SMS)
+        assert p.route == which and p.q_tiles * p.bq >= lq > \
+            (p.q_tiles - 1) * p.bq
+        order = tfa.block_order(p, b, h, hkv)
+        assert len(order) == p.blocks == len(set(order)) == \
+            p.q_tiles * b * h
+        groups = h // hkv
+        for i in range(0, len(order), groups):   # one kv head's q heads
+            run = order[i:i + groups]
+            assert len({(t, bb, hh // groups) for t, bb, hh in run}) == 1
+        tiles = [t for t, _, _ in order]
+        assert tiles == sorted(tiles, reverse=True)
+        attended = 0
+        nkt = -(-lk // p.bk)
+        for qt in range(p.q_tiles):
+            begin, end = tfa.key_tiles(p, qt, lq, lk, causal, window)
+            assert 0 <= begin < end <= nkt
+            pos = np.arange(qt * p.bq, min(lq, (qt + 1) * p.bq)) + lk - lq
+            if not causal:
+                lo, hi = np.zeros_like(pos), np.full_like(pos, lk - 1)
+            else:
+                lo = np.maximum(pos - window + 1, 0) if window else \
+                    np.zeros_like(pos)
+                hi = pos
+            if causal and pos.min() < 0:      # a row that sees no key
+                assert (begin, end) == (0, nkt)
+            k0, k1 = begin * p.bk, min(end * p.bk, lk) - 1
+            attended += int(np.clip(np.minimum(hi, k1) - np.maximum(lo, k0)
+                                    + 1, 0, None).sum())
+            if not (causal and pos.min() < 0):
+                for kt in range(begin, end):     # each tile earns its visit
+                    a, z = kt * p.bk, min(lk, (kt + 1) * p.bk) - 1
+                    assert ((np.minimum(hi, z) >= np.maximum(lo, a))).any()
+        assert attended == _chip_smoke().flash_pairs(lq, lk, causal, window)
+
+
+def test_block_counts_fill_the_card():
+    """128-row query tiles where they give the card a block per SM (the
+    long prefill), 64-row tiles where they would not (a 128-token
+    starcoder2-7b prompt: 36 blocks at 128 rows, 72 at 64)."""
+    assert tfa.plan("tc", 1, 8192, 36, SMS).bq == 128
+    p = tfa.plan("tc", 1, 128, 36, SMS)
+    assert p.bq == 64 and p.blocks >= 72
+    assert tfa.plan("tc", 8, 128, 36, SMS).bq == 128     # 288 blocks
+    assert tfa.plan("tc", 8, 128, 16, SMS).bq == 64      # 128 < 132

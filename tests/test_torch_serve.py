@@ -4,7 +4,10 @@ plain GELU MLP, an untied lm_head and a 64-token window) with
 heterogeneous adapters, JAX package vs ``repro_torch`` on the CPU. Every
 test of the ``slice_`` fixture runs for both configurations, and one GQA
 case (starcoder2 with a single kv head, a 96-token prompt over its window)
-runs the windowed prefill through the flash route.
+runs the windowed prefill through the flash route, once over a cache that
+holds the prompt and once over a ring of the window's 64 slots, the
+layout the reference prescribes; ``kv_cache_write`` itself is held to
+JAX's for a write longer than its ring on both ``t0`` branches.
 
 The JAX params come from ``repro.models.model.init_params``, wrapped by
 the JAX ``AdapterStore`` and carried across with ``params_from_jax``.
@@ -25,11 +28,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs import get_config as jget_config
 from repro.configs import smoke_variant as jsmoke
 from repro.launch import adapters as jadapters
 from repro.launch import serve as jserve
+from repro.models import attention as jattn
 from repro.models import layers as jlayers
 from repro.models import model as jmodel
 from repro_torch.configs import get_config, smoke_variant
@@ -184,6 +189,86 @@ def test_gqa_window_prefill_and_decode_match_jax():
     want = np.asarray(jserve.generate(params, jcfg, jnp.asarray(prompts), 4,
                                       104))
     got = tserve.generate(tparams, tcfg, prompts, 4, 104, device="cpu")
+    assert np.array_equal(got.numpy(), want)
+
+
+class _NoRepeatedScatter(TorchDispatchMode):
+    """Fails on an ``index_put_`` whose indices name one position twice:
+    torch leaves the winner of a repeated index undefined (it changes with
+    the thread count on the CPU and is unordered on the card), so a ring
+    write must never send one (ROADMAP Queue 3 p)."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in (torch.ops.aten.index_put_.default,
+                    torch.ops.aten.index_put.default):
+            idx = torch.broadcast_tensors(*(i for i in args[1]
+                                            if i is not None))
+            flat = torch.stack([i.reshape(-1) for i in idx], 1)
+            assert torch.unique(flat, dim=0).shape[0] == flat.shape[0], \
+                f"index_put_ with repeated indices ({flat.shape[0]} writes)"
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("per_row", [False, True], ids=["scalar", "per_row"])
+def test_ring_write_longer_than_cache_matches_jax(per_row):
+    """A write of more positions than the ring has slots (a prompt over a
+    windowed cache) leaves the k, v and pos that JAX's ``kv_cache_write``
+    leaves, on both ``t0`` branches, with no repeated index in any scatter
+    and at a size the CPU splits across threads."""
+    rng = np.random.default_rng(21 + per_row)
+    b, ln, size, h, d = 2, 600, 64, 4, 64
+    k, v = (rng.standard_normal((b, ln, h, d)).astype(np.float32)
+            for _ in range(2))
+    t0 = np.array([0, 37], np.int32) if per_row else 5
+    want = jattn.kv_cache_write(
+        jattn.kv_cache_init(b, size, h, d, jnp.float32), jnp.asarray(k),
+        jnp.asarray(v), jnp.asarray(t0))
+    got = tattn.kv_cache_init(b, size, h, d, torch.float32)
+    n = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        with torch.inference_mode(), _NoRepeatedScatter():
+            tattn.kv_cache_write(got, torch.from_numpy(k),
+                                 torch.from_numpy(v),
+                                 torch.from_numpy(t0) if per_row else t0)
+    finally:
+        torch.set_num_threads(n)
+    for name, g, w in zip(("k", "v", "pos"), got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w)), name
+
+
+def test_gqa_window_ring_cache_matches_jax():
+    """The layout the reference prescribes for a sliding-window arch: a
+    cache of the window's 64 slots under a 96-token prompt
+    (``init_decode_state(..., 64)``, starcoder2's smoke variant with one
+    kv head). Decode logits agree with JAX's to the starcoder2 decode
+    tolerance of ``test_prefill_and_decode_logits`` (Queue 3 n) and greedy
+    tokens are equal; no scatter repeats an index."""
+    jcfg = dataclasses.replace(jsmoke(jget_config("starcoder2-7b")),
+                               n_kv_heads=1)
+    tcfg = dataclasses.replace(smoke_variant(get_config("starcoder2-7b")),
+                               n_kv_heads=1)
+    assert tcfg.sliding_window == 64
+    params = jmodel.init_params(jax.random.PRNGKey(1), jcfg)
+    tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, params),
+                              "cpu")
+    prompts = _prompts(11, (2, 96), jcfg.vocab_size)
+    jstate = jmodel.init_decode_state(jcfg, 2, 64)
+    jl, jstate = jmodel.prefill(params, jcfg, jnp.asarray(prompts), jstate)
+    jtok = jnp.argmax(jl, -1).astype(jnp.int32)
+    jl2, _ = jmodel.decode_step(params, jcfg, jtok, jstate)
+    with torch.inference_mode(), _NoRepeatedScatter():
+        tstate = tmodel.init_decode_state(tcfg, 2, 64, device="cpu")
+        tl, tstate = tmodel.prefill(tparams, tcfg, torch.from_numpy(prompts),
+                                    tstate)
+        tl2, _ = tmodel.decode_step(
+            tparams, tcfg, torch.from_numpy(np.array(jtok)), tstate)
+        got = tserve.generate(tparams, tcfg, prompts, 4, 64, device="cpu")
+    assert np.max(np.abs(tl.numpy() - np.asarray(jl))) <= 1e-5
+    assert np.max(np.abs(tl2.numpy() - np.asarray(jl2))) <= \
+        DECODE_OWN_CACHE_TOL["starcoder2-7b"]
+    want = np.asarray(jserve.generate(params, jcfg, jnp.asarray(prompts), 4,
+                                      64))
     assert np.array_equal(got.numpy(), want)
 
 
