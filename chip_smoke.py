@@ -102,8 +102,11 @@ RWKV_H, RWKV_D = 32, 64
 # rwkv6_scan against its plain version, set before the first run: the final
 # state and fp32 y within 1e-5 of their scale; bf16 y within one bf16 ulp of
 # the output scale (the fp32 result is rounded once, and a last-place
-# difference can cross a rounding boundary). The two now share one
-# arithmetic order and are expected to agree bit for bit (reported).
+# difference can cross a rounding boundary). The two share one arithmetic
+# order, and every case must also agree bit for bit (gated): the order is
+# load-bearing, since rwkv6 serving parity sits near its bound and a kernel
+# that fused multiply-adds read 6.84e-2 against 5e-2. The build fails on
+# any FFMA in the kernel's SASS.
 SCAN_TOL = 1e-5
 
 # The training path: two FedGaLore rounds at full width.
@@ -278,12 +281,28 @@ def graph_ms(fn, sets, calls=20, replays=5):
 
 # ---------------------------------------------------------------- phases --
 
+def sass_count(name: str, opcode: str) -> int:
+    """Instructions of ``opcode`` in the built library's SASS."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(_build.build(name))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    return len(re.findall(r"\b" + opcode + r"\b", sass))
+
+
 def phase_build():
-    """One nvcc per source, all started together."""
+    """One nvcc per source, all started together. rwkv6_scan's SASS must
+    hold no fused multiply-add (its order is the plain version's)."""
     from repro_torch.kernels import _build
     for name, seconds in _build.build_all().items():
-        emit({"phase": "build", "kernel": name, "seconds": seconds,
-              "ptxas": ptxas_summary(_build.PTXAS_LOG.get(name, ""))})
+        row = {"phase": "build", "kernel": name, "seconds": seconds,
+               "ptxas": ptxas_summary(_build.PTXAS_LOG.get(name, ""))}
+        if name == "rwkv6_scan":
+            row["ffma"] = sass_count(name, "FFMA")
+        emit(row)
+        check(row.get("ffma", 0) == 0,
+              f"{name}: {row.get('ffma')} FFMA in the SASS")
 
 
 # Route edges of the low-rank applies, (B, t, m, n): rows 1, 16, 17 (the
@@ -670,15 +689,28 @@ def scan_bound(c):
     return _bound(nbytes, [(4.0 * b * l * h * d * d, PEAK_FP32)])
 
 
+def _scan_module():
+    """The kernel module (the package attribute of its name is ops'
+    dispatching function)."""
+    import importlib
+    return importlib.import_module("repro_torch.kernels.rwkv6_scan")
+
+
 def phase_rwkv_kernel_checks(gen):
     """``rwkv6_scan`` against its plain version at every shape the RWKV
     serving path launches — SlotServer's admission prefill (1, 128) and
     (1, 100), generate's prefill (8, 128), decode (8, 1); bf16 r/k/v, fp32
     w, s0 given, chunk 128 — plus fp32 r/k/v, bf16 w, no s0, D = 40,
-    several chunks with a ragged tail and a small chunk. Returns the worst
-    error and the keys checked."""
+    several chunks with a ragged tail and a small chunk, and the plan's
+    edges: D = 17 and 33 (not a multiple of a lane's rows, rows copied
+    element by element), L = 0 (S_final = s0), L = 129 with chunk 64 (the
+    second slot refilled), (8, 300) (16 rows a lane over several chunks),
+    and (2, 300) with fp32 r/k/v and fp32 or bf16 w (two slots cut short
+    to fit in shared memory). Each case must agree within the tolerance
+    and bit for bit. Returns the worst error and the keys checked."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as scan_kernel
+    scan_mod = _scan_module()
+    scan_kernel = scan_mod.rwkv6_scan
     path = [dict(b=1, l=PROMPT), dict(b=1, l=100), dict(b=B, l=PROMPT),
             dict(b=B, l=1)]
     extra = [dict(b=2, l=PROMPT, dtype=torch.float32),
@@ -687,8 +719,13 @@ def phase_rwkv_kernel_checks(gen):
              dict(b=2, l=50, d=40),
              dict(b=1, l=300),
              dict(b=2, l=100, chunk=16)]
+    edges = [dict(b=2, l=50, d=17), dict(b=2, l=50, d=33),
+             dict(b=2, l=0), dict(b=2, l=129, chunk=64),
+             dict(b=B, l=300),
+             dict(b=2, l=300, dtype=torch.float32),
+             dict(b=2, l=300, dtype=torch.float32, w_dtype=torch.bfloat16)]
     worst, checked = 0.0, set()
-    for spec in path + extra:
+    for spec in path + extra + edges:
         spec = dict(spec)
         chunk = spec.pop("chunk", 128)
         c = _scan_case(gen, **spec)
@@ -700,24 +737,34 @@ def phase_rwkv_kernel_checks(gen):
               s_fin.dtype == s_p.dtype == torch.float32,
               f"rwkv6_scan output {y.dtype}{tuple(y.shape)} vs plain "
               f"{y_p.dtype}{tuple(y_p.shape)}")
-        y_scale = y_p.float().abs().max().item()
+        if y.numel() == 0:
+            check(torch.equal(s_fin, c["s0"]), "rwkv6_scan with L = 0 does "
+                  "not return s0 as the final state")
+        y_scale = y_p.float().abs().max().item() if y.numel() else 0.0
         s_scale = s_p.abs().max().item()
-        err_y = (y.float() - y_p.float()).abs().max().item()
+        err_y = ((y.float() - y_p.float()).abs().max().item()
+                 if y.numel() else 0.0)
         err_s = (s_fin - s_p).abs().max().item()
         tol_y = (SCAN_TOL * y_scale if y.dtype == torch.float32
                  else bf16_ulp(y_scale))
         tol_s = SCAN_TOL * s_scale
+        bit = torch.equal(y, y_p) and torch.equal(s_fin, s_p)
+        b_, l_, h_, d_ = c["r"].shape
+        plan = scan_mod.plan(b_, l_, h_, d_, chunk,
+                             scan_mod._sm_count(c["r"].device),
+                             c["r"].element_size(), c["w"].element_size())
         emit({"phase": "rwkv_kernel_check", "kernel": "rwkv6_scan",
               "r": list(c["r"].shape), "dtype": str(y.dtype).split(".")[1],
               "w_dtype": str(c["w"].dtype).split(".")[1],
               "s0": c["s0"] is not None, "chunk": chunk,
-              "bit_identical": torch.equal(y, y_p) and torch.equal(s_fin,
-                                                                    s_p),
+              "plan": plan._asdict(), "bit_identical": bit,
               "max_abs_err_y": err_y, "y_scale": y_scale, "tol_y": tol_y,
               "max_abs_err_s": err_s, "s_scale": s_scale, "tol_s": tol_s})
         check(err_y <= tol_y and err_s <= tol_s,
               f"rwkv6_scan disagrees at r {tuple(c['r'].shape)} "
               f"{y.dtype}: y {err_y} > {tol_y} or s {err_s} > {tol_s}")
+        check(bit, f"rwkv6_scan is not bit-identical to its plain version "
+                   f"at r {tuple(c['r'].shape)} {y.dtype}, chunk {chunk}")
         worst = max(worst, err_y, err_s)
         checked.add(_scan_key(*args, chunk=chunk))
     return worst, checked
@@ -727,16 +774,22 @@ def phase_rwkv_times(gen, card):
     """``rwkv6_scan`` and its plain version at the serving path's prefill
     and decode shapes, eager and from a CUDA graph, against the bound."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as scan_kernel
+    scan_mod = _scan_module()
+    scan_kernel = scan_mod.rwkv6_scan
     rows = []
     for label, b, l in (("admission prefill", 1, PROMPT),
                         ("ragged admission prefill", 1, 100),
                         ("generate prefill", B, PROMPT), ("decode", B, 1)):
         sets = [_scan_case(gen, b, l) for _ in range(4)]
         b_ms, b_by = scan_bound(sets[0])
+        plan = scan_mod.plan(b, l, RWKV_H, RWKV_D, 128,
+                             scan_mod._sm_count(sets[0]["r"].device),
+                             sets[0]["r"].element_size(),
+                             sets[0]["w"].element_size())
         row = {"phase": "rwkv_times", "kernel": "rwkv6_scan", "card": card,
                "shape": label, "B": b, "L": l, "H": RWKV_H, "D": RWKV_D,
-               "bound_ms": b_ms, "bound_by": b_by,
+               "rows": plan.rows, "group": plan.group,
+               "blocks": plan.blocks, "bound_ms": b_ms, "bound_by": b_by,
                "library": "no single call"}
 
         def args(c):
@@ -1513,6 +1566,28 @@ def _bound(nbytes, flops_by_peak):
             "operations" if ops_s > bytes_s else "bytes")
 
 
+def profiled_ms(fn, sets, calls=5):
+    """Median over ``calls`` calls of the device time of the CUDA kernels
+    one call launches, summed (copies and memsets left out), from
+    ``torch.profiler``; calls whose trace shows no kernel are left out,
+    and None if none shows one."""
+    from torch.profiler import ProfilerActivity, profile
+    for c in sets[:2]:
+        fn(c)
+    torch.cuda.synchronize()
+    per_call = []
+    for i in range(calls):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(sets[i % len(sets)])
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.name.startswith(("Memcpy", "Memset"))]
+        if kernels:
+            per_call.append(sum(e.device_time_total for e in kernels) / 1e3)
+    return float(np.median(per_call)) if per_call else None
+
+
 def _timed(row, fns, sets, no_graph=(), warmup=5, iters=40, calls=20,
            replays=5):
     """Eager ms of each function; device ms from a CUDA graph except for
@@ -1626,6 +1701,14 @@ def phase_train_times(gen, card):
             "plain_ms": lambda a: ref.jacobi_eigh_ref(a),
             "library_ms": lambda a: torch.linalg.eigh(a)}, sets,
             no_graph=("library_ms",)))       # eigh checks its info on host
+        # eigh cannot be captured in a graph: its device time is the time
+        # of its CUDA kernels from the profiler, held against the kernel's
+        # own time measured the same way (profiled_ms)
+        row["device_library_ms"] = profiled_ms(torch.linalg.eigh, sets)
+        row["profiled_ms"] = profiled_ms(be.jacobi_eigh, sets)
+        row["device_library_from"] = ("torch.profiler: the CUDA kernels of "
+                                      "one call summed, median of 5 calls, "
+                                      "as profiled_ms for jacobi_eigh")
         emit(rows[-1])
         del sets
     return rows
@@ -1635,7 +1718,7 @@ def _sum_rows(rows, kernel, weight=lambda r: 1):
     picked = [r for r in rows if r["kernel"] == kernel]
     out = {}
     for key in ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
-                "device_plain_ms", "device_library_ms"):
+                "device_plain_ms", "device_library_ms", "profiled_ms"):
         vals = [r.get(key) for r in picked]
         out[key] = (None if any(v is None for v in vals)
                     else sum(weight(r) * v for r, v in zip(picked, vals)))
@@ -1783,7 +1866,9 @@ def main(argv=None) -> int:
          "src/repro/kernels/batched_eigh.py:133", lambda r: 1,
          "one 𝒮 of the round: Phase-1 Grams (4,24,4,8,8) + (24,4,8,8) + "
          "(2,24,4,8,8); library_ms is torch.linalg.eigh on the same "
-         "stacks"),
+         "stacks, its device_library_ms the profiler's sum of its CUDA "
+         "kernels (it cannot be graph-captured), beside profiled_ms, "
+         "jacobi_eigh's own time measured the same way"),
     ]
     for name, source, replaces, weight, at in train_entries:
         agg = _sum_rows(train_rows, name, weight)
@@ -1797,6 +1882,9 @@ def main(argv=None) -> int:
             "device_plain_ms": agg["device_plain_ms"],
             "device_library_ms": agg["device_library_ms"],
             "at": at + "; " + timing, "card": card})
+        if name == "jacobi_eigh":
+            kernels[-1]["device_library_from"] = "torch.profiler"
+            kernels[-1]["profiled_ms"] = agg["profiled_ms"]
         if name == "lowrank_linear":
             kernels[-1]["launches_by_route"] = {
                 k: sum(r["routes"][name][k] for r in rounds)

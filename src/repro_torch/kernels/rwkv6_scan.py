@@ -4,30 +4,122 @@ Per (b, h), with S a D×D fp32 state carried over the whole sequence:
 
     y_t = r_t · (S + diag(u) k_t v_tᵀ);   S ← diag(w_t) S + k_t v_tᵀ
 
-The kernel is CUDA C++ for sm_90a (``csrc/rwkv6_scan.cu``: one block per
-(b, h), thread j holding column j of S in registers, ``chunk`` time steps
-staged in shared memory per load), built with ``nvcc`` at first launch
-and called through ``ctypes`` on PyTorch's current stream. Unlike the
-Pallas kernel it takes any L — decode is L = 1 and prompts are ragged.
-Its plain version is ``ref.rwkv6_scan_ref``.
+The kernel is CUDA C++ for sm_90a (``csrc/rwkv6_scan.cu``), built with
+``nvcc`` at first launch and called through ``ctypes`` on PyTorch's
+current stream. Each (b, h) is spread over lanes and blocks: a column of
+S over the lanes of one warp, 4 contiguous rows a lane in registers (16
+when the grid would not fit one wave), and the columns over
+``col_blocks`` blocks (:func:`plan`; :func:`owner` is the kernel's map
+from a thread to its column and rows). y_j is the plain version's tree of
+adjacent pairs — each lane's rows, then ``__shfl_xor_sync`` across the
+column's lanes — so the two agree bit for bit. The time steps are staged
+in shared memory with ``cp.async``. Unlike the Pallas kernel it takes any
+L — decode is L = 1 and prompts are ragged. Its plain version is
+``ref.rwkv6_scan_ref``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 
-MAX_HEAD_DIM = 64
+MAX_HEAD_DIM = 64          # and the rows of the kernel's y tree
+MAX_THREADS = 256          # a block
+WARP = 32
+GROUP = 8                  # steps whose y trees are reduced together
+RESIDENT = 2               # blocks an SM holds (the kernel's launch bounds)
+SMEM_OPTIN = 227 * 1024    # shared memory a block may take on sm_90
 _SMEM_REFUSED = 9          # cudaErrorInvalidConfiguration
+
+
+class Plan(NamedTuple):
+    """How one call is cut. A column's 64 rows (D zero-padded, the plain
+    version's ``_pairwise_sum``) are spread ``rows`` a lane over ``lanes``
+    lanes; ``group`` steps are reduced together. A block holds ``cols``
+    columns (``threads`` threads) and a (b, h) takes ``col_blocks`` blocks,
+    ``blocks`` in all. ``staged`` time steps fill a shared-memory slot;
+    ``slots`` is 2 (the next chunk is copied under this one) when the
+    sequence is longer than that. ``smem`` is the bytes a block takes."""
+    rows: int
+    lanes: int
+    group: int
+    cols: int
+    col_blocks: int
+    blocks: int
+    threads: int
+    staged: int
+    slots: int
+    smem: int
+
+
+def _cut(b, h, d, rows):
+    """(lanes, cols, col_blocks, blocks) with ``rows`` rows a lane: as many
+    columns a block as 256 threads hold in whole warps, no more than ``d``
+    needs."""
+    lanes = MAX_HEAD_DIM // rows
+    per_warp = WARP // lanes
+    cols = min(MAX_THREADS // lanes, -(-d // per_warp) * per_warp)
+    col_blocks = -(-d // cols)
+    return lanes, cols, col_blocks, b * h * col_blocks
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(b: int, l: int, h: int, d: int, chunk: int, sms: int = 132,
+         rkv_bytes: int = 2, w_bytes: int = 4) -> Plan:
+    """Cut a call of ``b`` batch rows, ``l`` steps and ``h`` heads of size
+    ``d`` with ``chunk`` steps staged per load, on a card of ``sms``
+    multiprocessors, r/k/v of ``rkv_bytes`` and w of ``w_bytes`` an
+    element. Four rows a lane, or
+    - 16 rows a lane when four would need more than one wave of blocks
+      (``RESIDENT`` an SM), as with the 8 prompts of ``generate`` or 8
+      decode rows: a quarter of the blocks, each lane doing more work;
+    - steps reduced one at a time when L < ``GROUP`` (decode), a kernel
+      with fewer registers.
+    ``min(chunk, L)`` steps a slot; where two slots of them would not fit
+    in ``SMEM_OPTIN`` (fp32 operands), as many whole groups as two do. A
+    ``smem`` over ``SMEM_OPTIN`` (one slot of ``chunk`` too large) is
+    refused at launch."""
+    rows, group = 4, GROUP
+    lanes, cols, col_blocks, blocks = _cut(b, h, d, rows)
+    if blocks > RESIDENT * sms:
+        rows = 16
+        lanes, cols, col_blocks, blocks = _cut(b, h, d, rows)
+    if l < GROUP:
+        group = 1
+    step_bytes = MAX_HEAD_DIM * (3 * rkv_bytes + w_bytes)
+    tile = MAX_HEAD_DIM * (cols + 1) * 4
+    staged = min(chunk, max(l, 1))
+    if l > staged and 2 * staged * step_bytes + tile > SMEM_OPTIN:
+        fit = (SMEM_OPTIN - tile) // (2 * step_bytes)
+        staged = max(fit - fit % GROUP, 1)
+    slots = 2 if l > staged else 1
+    return Plan(rows, lanes, group, cols, col_blocks, blocks, cols * lanes,
+                staged, slots, slots * staged * step_bytes + tile)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def owner(p: Plan, block: int, thread: int):
+    """(b·h index, column, first row) of one thread, as the kernel decodes
+    ``blockIdx.x`` and ``threadIdx.x``: lane q of column c holds rows
+    [rows·q, rows·q + rows); a column or row at or past D is padding."""
+    bh, cb = divmod(block, p.col_blocks)
+    c, q = divmod(thread, p.lanes)
+    return bh, cb * p.cols + c, p.rows * q
 
 
 def _lib():
     lib = _build.load("rwkv6_scan")
     fn = lib.rwkv6_scan_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -75,8 +167,10 @@ def rwkv6_scan(r, k, v, w, u, s0=None, *, chunk: int = 128):
     r, k, v (B, L, H, D) bf16 or fp32 (one dtype), w the same shape fp32
     or bf16, u (H, D) fp32, s0 (B, H, D, D) fp32 or None (zeros); all
     contiguous. Any L; ``chunk`` is the number of time steps staged in
-    shared memory per load. Raises for D > 64, a CPU tensor or a bad
-    dtype, shape or layout. ``rwkv6_scan.launches`` counts the
+    shared memory per load (:func:`plan`; fewer where two slots of them
+    would not fit). Raises for D > 64, a CPU
+    tensor or a bad dtype, shape or layout, and when ``chunk`` staged
+    steps do not fit in shared memory. ``rwkv6_scan.launches`` counts the
     launches."""
     _check(r, k, v, w, u, s0, chunk)
     b, l, h, d = r.shape
@@ -84,15 +178,19 @@ def rwkv6_scan(r, k, v, w, u, s0=None, *, chunk: int = 128):
     s_final = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
     if b * h == 0:
         return y, s_final
+    p = plan(b, l, h, d, int(chunk), _sm_count(r.device), r.element_size(),
+             w.element_size())
     err = _lib()(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                  u.data_ptr(), None if s0 is None else s0.data_ptr(),
-                 y.data_ptr(), s_final.data_ptr(), b, l, h, d, int(chunk),
+                 y.data_ptr(), s_final.data_ptr(), b, l, h, d, p.rows,
+                 p.group, p.cols, p.col_blocks, p.staged,
                  int(r.dtype == torch.bfloat16),
                  int(w.dtype == torch.bfloat16),
                  torch.cuda.current_stream(r.device).cuda_stream)
     if err == _SMEM_REFUSED:
-        raise ValueError(f"rwkv6_scan: {chunk} staged steps do not fit in "
-                         "the device's shared memory per block")
+        raise ValueError(f"rwkv6_scan: {p.slots} x {p.staged} staged steps "
+                         "do not fit in the device's shared memory per "
+                         "block")
     if err != 0:
         raise RuntimeError(f"rwkv6_scan launch failed: CUDA error {err}")
     rwkv6_scan.launches += 1

@@ -17,6 +17,7 @@ The same numpy inputs, made from a seed, go through both packages:
   identical; ``AdapterStore`` tables bit for bit.
 """
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -487,3 +488,134 @@ def test_scan_ref_keeps_the_kernels_arithmetic_order(d):
                                          (r, k, v, w, u, s0)))
     assert np.array_equal(got_y.numpy(), y)
     assert np.array_equal(got_s.numpy(), s)
+
+
+# ------------------------------------------- the kernel's plan, on CPU ----
+
+_scan_mod = importlib.import_module("repro_torch.kernels.rwkv6_scan")
+# (b, l, h, sms): one 128-token prompt (4 rows a lane), 8 prompts and 8
+# decode rows on a card too small for one wave of them (16 rows a lane;
+# decode reduces one step at a time), an empty sequence.
+_PLAN_CASES = [(1, 128, 2, 132), (8, 128, 2, 2), (8, 1, 2, 2), (2, 0, 2, 132)]
+
+
+def test_plan_of_the_serving_shapes():
+    """rwkv6-1.6b's calls on an H100 (132 SMs): an admission prefill keeps
+    4 rows a lane over 128 blocks; generate's 8 prompts and decode take 16
+    rows a lane (one wave), decode one step at a time; a longer sequence
+    than ``chunk`` gets the second slot."""
+    p = _scan_mod.plan(1, 128, 32, 64, 128, 132)
+    assert (p.rows, p.lanes, p.group, p.cols, p.blocks, p.threads,
+            p.staged, p.slots) == (4, 16, 8, 16, 128, 256, 128, 1)
+    assert _scan_mod.plan(1, 100, 32, 64, 128, 132).staged == 100
+    p = _scan_mod.plan(8, 128, 32, 64, 128, 132)
+    assert (p.rows, p.lanes, p.group, p.blocks) == (16, 4, 8, 256)
+    p = _scan_mod.plan(8, 1, 32, 64, 128, 132)
+    assert (p.rows, p.group, p.blocks, p.staged, p.slots) == (16, 1, 256, 1,
+                                                             1)
+    p = _scan_mod.plan(2, 129, 32, 64, 64, 132)
+    assert (p.staged, p.slots) == (64, 2)
+
+
+@pytest.mark.parametrize("case", _PLAN_CASES)
+@pytest.mark.parametrize("d", [1, 17, 33, 40, 64])
+def test_plan_covers_every_row_of_every_column_once(d, case):
+    """``plan`` is pure, its blocks are whole warps of at most 256 threads,
+    and the threads (decoded as the kernel decodes them, ``owner``) hold
+    every row i < D of every column j < D of every (b, h) exactly once."""
+    b, l, h, sms = case
+    p = _scan_mod.plan(b, l, h, d, 128, sms)
+    assert p == _scan_mod.plan.__wrapped__(b, l, h, d, 128, sms)
+    assert p.rows * p.lanes == 64 and p.threads == p.cols * p.lanes
+    assert p.threads % 32 == 0 and p.threads <= 256
+    assert p.blocks == b * h * p.col_blocks and p.cols * p.col_blocks >= d
+    held = np.zeros((b * h, d, d), np.int64)          # (b h, row, column)
+    for blk in range(p.blocks):
+        for thread in range(p.threads):
+            bh, j, r0 = _scan_mod.owner(p, blk, thread)
+            if j < d:
+                held[bh, r0:min(r0 + p.rows, d), j] += 1
+    assert (held == 1).all()
+
+
+def _emulate_tree(p, x):
+    """y over the steps of x (D, G, N) fp32 in the kernel's order for plan
+    ``p``: each lane sums its rows (zero-padded to 64) as adjacent
+    pairs, then the reduce-scatter of ``csrc/rwkv6_scan.cu`` (keep half,
+    add the half lane q ^ 2^l sends back; then the butterfly across the
+    lanes left). Returns {step: (lane, value)} of the lanes that store."""
+    d, g = x.shape[0], p.group
+    pad = torch.zeros((64,) + x.shape[1:], dtype=torch.float32)
+    pad[:d] = x
+    part = []
+    for q in range(p.lanes):
+        rows = list(pad[q * p.rows:(q + 1) * p.rows])
+        while len(rows) > 1:
+            rows = [rows[a] + rows[a + 1] for a in range(0, len(rows), 2)]
+        part.append(list(rows[0]))                     # g values of (N,)
+    sigma = [0] * p.lanes
+    lev = min(p.lanes, g).bit_length() - 1
+    for lv in range(lev):
+        half = (g >> lv) // 2
+        new = []
+        for q in range(p.lanes):
+            lo = half if (q >> lv) & 1 else 0        # the half lane q keeps
+            mine, sent = part[q], part[q ^ (1 << lv)]
+            new.append([mine[lo + i] + sent[lo + i] for i in range(half)])
+            sigma[q] += lo
+        part = new
+    off = g
+    while off < p.lanes:
+        part = [[part[q][0] + part[q ^ off][0]] for q in range(p.lanes)]
+        off *= 2
+    stored = {}
+    for q in range(min(p.lanes, g)):
+        for i, val in enumerate(part[q]):
+            assert sigma[q] + i not in stored
+            stored[sigma[q] + i] = (q, val)
+    return stored
+
+
+@pytest.mark.parametrize("case", _PLAN_CASES[:3])
+@pytest.mark.parametrize("d", [1, 17, 33, 40, 64])
+def test_planned_reduction_order_is_the_pairwise_sum(d, case):
+    """The kernel's sum over rows, emulated in torch fp32 for the plan —
+    in-lane adjacent pairs, then xor-shuffle levels — is bitwise the plain
+    version's ``_pairwise_sum``, and each of a group's steps is stored by
+    exactly one lane. Inputs span eight decades, so any other order
+    rounds differently."""
+    b, l, h, sms = case
+    p = _scan_mod.plan(b, l, h, d, 128, sms)
+    rng = np.random.default_rng(d)
+    x = (rng.standard_normal((d, p.group, 64))
+         * 10.0 ** rng.uniform(-4, 4, (d, p.group, 64))).astype(np.float32)
+    want = tref._pairwise_sum(torch.from_numpy(x).reshape(d, -1))
+    want = want.reshape(p.group, 64)
+    stored = _emulate_tree(p, torch.from_numpy(x))
+    assert sorted(stored) == list(range(p.group))
+    for step, (_, val) in stored.items():
+        assert torch.equal(val.view(torch.int32), want[step].view(torch.int32))
+
+
+@pytest.mark.parametrize("sizes", [(2, 4), (2, 2), (4, 4), (4, 2)],
+                         ids=["bf16-fp32w", "bf16-bf16w", "fp32-fp32w",
+                              "fp32-bf16w"])
+@pytest.mark.parametrize("shape", [(1, 128), (1, 300), (2, 300), (8, 300),
+                                   (8, 129), (8, 1)])
+def test_plan_stages_within_shared_memory(shape, sizes):
+    """With ``chunk`` 128, every r/k/v and w type takes any L: two slots
+    are cut to whole groups that fit in an sm_90 block's shared memory
+    (fp32 operands), and bf16 r/k/v keep the full chunk. ``smem`` is what
+    the launcher asks for: the slots of r, k, v, w in their own types and
+    the fp32 S tile."""
+    (b, l), (rkv, w) = shape, sizes
+    p = _scan_mod.plan(b, l, 32, 64, 128, 132, rkv, w)
+    step = 64 * (3 * rkv + w)
+    assert p.smem == p.slots * p.staged * step + 64 * (p.cols + 1) * 4
+    assert p.smem <= _scan_mod.SMEM_OPTIN
+    assert p.slots == (2 if l > p.staged else 1)
+    assert 1 <= p.staged <= min(128, l)
+    if rkv == 2 or l <= 128:
+        assert p.staged == min(128, l)
+    else:
+        assert p.staged % 8 == 0 and p.staged >= 96
