@@ -169,9 +169,10 @@ def ptxas_summary(log: str):
                               r"reduce_kernel|tc_gemm_kernel|"
                               r"tc_decode_kernel|right_kernel|"
                               r"left_kernel|wkv6_kernel|simt_kernel|"
-                              r"tc_kernel)"
+                              r"tc_kernel|jacobi_warp_kernel|"
+                              r"jacobi_pair_kernel)"
                               r"I(.*?)EEv", name)
-            plain = re.search(r"(jacobi_kernel|tc_shrink_kernel|"
+            plain = re.search(r"(jacobi_block_kernel|tc_shrink_kernel|"
                               r"tc_sum_kernel)", name)
             cur = {"function": (short.group(1) + "<" + short.group(2) + ">")
                    if short else plain.group(1) if plain else name}
@@ -493,9 +494,11 @@ SLOW_ROUTES = ("fp32", "simt")
 
 
 def _check_tc_routes(path, launches, routes):
-    """Every launch on a path of a kernel with routes went through a
-    tensor-core route (the low-rank applies' tc_gemm or tc_decode,
-    flash_attention's tc), none through SLOW_ROUTES."""
+    """Every launch on a path of a kernel with routes went through one of
+    its routes, and for the low-rank applies and flash_attention a
+    tensor-core one (tc_gemm or tc_decode, tc), none through SLOW_ROUTES.
+    jacobi_eigh's routes (warp, block) are both fast; phase_train holds
+    the path's launches to warp."""
     for name, by_route in routes.items():
         check(sum(by_route.get(k, 0) for k in SLOW_ROUTES) == 0 and
               sum(by_route.values()) == launches[name],
@@ -1321,15 +1324,29 @@ def phase_train_kernel_checks(gen):
         out["galore_adamw_step"][0] = max(out["galore_adamw_step"][0], err)
 
     # jacobi_eigh: 𝒮's Phase-1 Grams (bucket leaves, 24, 4 clients, 8, 8)
-    # and (24, 4, 8, 8) for the singleton bucket; n = 1..64; a diagonal
-    # input (exact-zero off-diagonals) through the masked ops path.
+    # and (24, 4, 8, 8) for the singleton bucket; n = 1..64 in batches of
+    # 7 (a partial block on the warp route); the route threshold +- 1 at
+    # batch 1 and at 21 (a whole block and a partial one); n = 7, 8 at the
+    # pair layout's last batch and one past it (the column layout); rank
+    # 16; a 64-client cohort (4, 24, 64, 8, 8) = 6,144 matrices; a
+    # diagonal input (exact-zero off-diagonals) through the masked ops
+    # path. Each case takes the route plan() names.
+    wmax, pmax = be.WARP_MAX_N, be.PAIR_MAX_BATCH
     shapes = [(4, 24, CLIENTS), (24, CLIENTS), (2, 24, CLIENTS)]
     cases = [(lead, TRAIN_R) for lead in shapes] + \
-        [((7,), n) for n in range(1, 65)]
+        [((7,), n) for n in range(1, 65)] + \
+        [(lead, n) for n in (wmax - 1, wmax, wmax + 1)
+         for lead in ((1,), (21,))] + \
+        [((b,), n) for n in (7, 8) for b in (pmax, pmax + 1)] + \
+        [((4, 24, CLIENTS), 16), ((4, 24, 64), TRAIN_R)]
+    shown = {(ld, TRAIN_R) for ld in shapes} | {((4, 24, CLIENTS), 16),
+                                                 ((4, 24, 64), TRAIN_R)}
     for lead, n in cases:
         a = _spd_case(gen, lead, n)
+        before = dict(be.jacobi_eigh.routes)
         lam, vec = be.jacobi_eigh(a)
         torch.cuda.synchronize()
+        took = _route_taken(be.jacobi_eigh, before)
         lam_p, vec_p = ref.jacobi_eigh_ref(a)
         scale = lam_p.abs().max().item()
         err_l = (lam - lam_p).abs().max().item()
@@ -1337,15 +1354,19 @@ def phase_train_kernel_checks(gen):
         err_r = (recon - a).abs().max().item() / max(scale, 1e-30)
         orth = (vec.mT @ vec - torch.eye(n, device="cuda")).abs().max().item()
         tol = 1e-5 * max(n, 8)
-        if (lead, n) in [(ld, TRAIN_R) for ld in shapes] or n in (1, 8, 17,
-                                                                  64):
+        planned = be.plan(n, a.numel() // (n * n))
+        if (lead, n) in shown or n in (1, 7, 8, 17, 64) or \
+                n in (wmax - 1, wmax, wmax + 1):
             emit({"phase": "train_kernel_check", "kernel": "jacobi_eigh",
-                  "a": list(a.shape), "max_abs_err": err_l,
+                  "a": list(a.shape), "route": took,
+                  "layout": planned.layout, "max_abs_err": err_l,
                   "rel_err_lam": err_l / max(scale, 1e-30),
                   "rel_recon": err_r, "orth": orth, "tol": tol})
+        check(took == planned.route,
+              f"jacobi_eigh at {tuple(a.shape)} took route {took}")
         check(err_l <= tol * scale and err_r <= tol and orth <= tol,
-              f"jacobi_eigh disagrees at {tuple(a.shape)}: lam {err_l} "
-              f"recon {err_r} orth {orth}")
+              f"jacobi_eigh disagrees at {tuple(a.shape)} ({took}): lam "
+              f"{err_l} recon {err_r} orth {orth}")
         out["jacobi_eigh"][0] = max(out["jacobi_eigh"][0], err_l)
         out["jacobi_eigh"][1].add(tuple(a.shape))
     diag = torch.diag_embed(torch.tensor([[3.0, 1.0, 2.0, 0.5]] * 3,
@@ -1409,7 +1430,8 @@ def _launch_counts():
 
 
 def _route_counts():
-    """Launches by route of the two low-rank applies."""
+    """Launches by route of the kernels with routes (the low-rank applies,
+    flash_attention, jacobi_eigh)."""
     return {name: dict(fn.routes) for name, fn in _counted().items()
             if hasattr(fn, "routes")}
 
@@ -1477,6 +1499,11 @@ def phase_train(seed, card, checked):
                   f"{r['launches'][name]} times, expected {want}")
         _check_tc_routes(f"train round {r['round']}", r["launches"],
                          r["routes"])
+        check(r["routes"]["jacobi_eigh"]["warp"]
+              == r["launches"]["jacobi_eigh"],
+              f"round {r['round']}: jacobi_eigh routes "
+              f"{r['routes']['jacobi_eigh']}: an 𝒮 bucket left the warp "
+              "route")
         check(r["launches"]["galore_adamw_step"] == 0
               and r["launches"]["lowrank_linear_batched"] == 0
               and r["launches"]["rwkv6_scan"] == 0
@@ -1566,26 +1593,44 @@ def _bound(nbytes, flops_by_peak):
             "operations" if ops_s > bytes_s else "bytes")
 
 
-def profiled_ms(fn, sets, calls=5):
-    """Median over ``calls`` calls of the device time of the CUDA kernels
-    one call launches, summed (copies and memsets left out), from
-    ``torch.profiler``; calls whose trace shows no kernel are left out,
-    and None if none shows one."""
+MARK = "spin_kernel"         # torch.cuda._sleep's kernel
+
+
+def profiled_ms(fn, sets, calls=5, counter=None):
+    """The device time of the CUDA kernels one call of ``fn`` launches,
+    summed (copies, memsets and markers left out), by ``torch.profiler``.
+    One session holds two warm-up calls, then ``calls`` calls, each after
+    a marker kernel (``torch.cuda._sleep``), and one marker more; the
+    kernels between two markers, in device order, are one call's. Returns
+    ``ms`` (the median over the calls that showed a kernel, None if none
+    did), ``kernels`` seen per call, ``launches`` per call as the wrapper
+    ``counter`` counted them (None without one) and ``markers`` seen
+    (``calls`` + 1 when the trace lost none)."""
     from torch.profiler import ProfilerActivity, profile
-    for c in sets[:2]:
-        fn(c)
-    torch.cuda.synchronize()
-    per_call = []
-    for i in range(calls):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    launches = []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for c in sets[:2]:
+            fn(c)
+        for i in range(calls):
+            torch.cuda._sleep(1000)
+            before = counter.launches if counter is not None else 0
             fn(sets[i % len(sets)])
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not e.name.startswith(("Memcpy", "Memset"))]
-        if kernels:
-            per_call.append(sum(e.device_time_total for e in kernels) / 1e3)
-    return float(np.median(per_call)) if per_call else None
+            launches.append(None if counter is None
+                            else counter.launches - before)
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.name.startswith(("Memcpy", "Memset"))),
+                     key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(kernels) if MARK in e.name]
+    per_call = [kernels[i + 1:j] for i, j in zip(marks, marks[1:])]
+    times = [sum(e.time_range.elapsed_us() for e in ks) / 1e3
+             for ks in per_call if ks]
+    return {"ms": float(np.median(times)) if times else None,
+            "kernels": [len(ks) for ks in per_call],
+            "launches": launches if counter is not None else None,
+            "markers": len(marks)}
 
 
 def _timed(row, fns, sets, no_graph=(), warmup=5, iters=40, calls=20,
@@ -1684,9 +1729,16 @@ def phase_train_times(gen, card):
         "library_ms": None}, sets))
     emit(rows[-1])
     del sets
-    for lead in ((4, 24, CLIENTS), (24, CLIENTS), (2, 24, CLIENTS)):
-        sets = [_spd_case(gen, lead, TRAIN_R) for _ in range(2)]
-        n, batch = TRAIN_R, int(np.prod(lead))
+    # jacobi_eigh: the three 𝒮 buckets of the path, then two shapes
+    # recorded beside them (rank 16; a 64-client cohort, 6,144 matrices)
+    eigh_cases = [((4, 24, CLIENTS), TRAIN_R, True),
+                  ((24, CLIENTS), TRAIN_R, True),
+                  ((2, 24, CLIENTS), TRAIN_R, True),
+                  ((4, 24, CLIENTS), 16, False),
+                  ((4, 24, 64), TRAIN_R, False)]
+    for lead, n, on_path in eigh_cases:
+        sets = [_spd_case(gen, lead, n) for _ in range(2)]
+        batch = int(np.prod(lead))
         m_ = n + (n & 1)
         steps = 12 * (m_ - 1)
         pairs = m_ // 2
@@ -1694,7 +1746,9 @@ def phase_train_times(gen, card):
         b_ms, b_by = _bound(4 * batch * (2 * n * n + n),
                             [(flops, PEAK_FP32)])
         row = {"phase": "train_times", "kernel": "jacobi_eigh",
-               "card": card, "a": list(lead) + [n, n], "bound_ms": b_ms,
+               "card": card, "a": list(lead) + [n, n], "on_path": on_path,
+               "route": be.plan(n, batch).route,
+               "layout": be.plan(n, batch).layout, "bound_ms": b_ms,
                "bound_by": b_by, "library": "torch.linalg.eigh"}
         rows.append(_timed(row, {
             "ms": lambda a: be.jacobi_eigh(a),
@@ -1704,18 +1758,46 @@ def phase_train_times(gen, card):
         # eigh cannot be captured in a graph: its device time is the time
         # of its CUDA kernels from the profiler, held against the kernel's
         # own time measured the same way (profiled_ms)
-        row["device_library_ms"] = profiled_ms(torch.linalg.eigh, sets)
-        row["profiled_ms"] = profiled_ms(be.jacobi_eigh, sets)
-        row["device_library_from"] = ("torch.profiler: the CUDA kernels of "
-                                      "one call summed, median of 5 calls, "
-                                      "as profiled_ms for jacobi_eigh")
+        lib = profiled_ms(torch.linalg.eigh, sets)
+        own = profiled_ms(be.jacobi_eigh, sets, counter=be.jacobi_eigh)
+        row.update(device_library_ms=lib["ms"], profiled_ms=own["ms"],
+                   library_kernels=lib["kernels"],
+                   library_markers=lib["markers"],
+                   profiled_kernels=own["kernels"],
+                   profiled_launches=own["launches"],
+                   profiled_markers=own["markers"],
+                   device_library_from=(
+                       "torch.profiler: the CUDA kernels of one call "
+                       "summed, median of 5 calls in one session split by "
+                       "marker kernels, as profiled_ms for jacobi_eigh"))
+        if own["kernels"] != own["launches"]:
+            row["profiled_note"] = (
+                f"the profiler saw {own['kernels']} kernels where the "
+                f"wrapper launched {own['launches']}")
+        if row["profiled_ms"] and row["device_ms"]:
+            row["profiled_over_graph"] = row["profiled_ms"] / row["device_ms"]
         emit(rows[-1])
         del sets
+    path = [r for r in rows if r["kernel"] == "jacobi_eigh" and r["on_path"]]
+    emit({"phase": "train_times", "kernel": "jacobi_eigh", "card": card,
+          "acceptance": {
+              "graph_le_40us": all(r["device_ms"] <= 0.040 for r in path),
+              "below_eigh": all(r["profiled_ms"] is not None
+                                and r["device_library_ms"] is not None
+                                and r["profiled_ms"]
+                                < r["device_library_ms"] for r in path),
+              "profiled_within_10pct_of_graph": all(
+                  abs(r.get("profiled_over_graph", 9.0) - 1) <= 0.1
+                  for r in path),
+              "seen_on_all": all(r["profiled_kernels"]
+                                 == r["profiled_launches"] for r in path),
+              "one_s_graph_ms": sum(r["device_ms"] for r in path)}})
     return rows
 
 
 def _sum_rows(rows, kernel, weight=lambda r: 1):
-    picked = [r for r in rows if r["kernel"] == kernel]
+    picked = [r for r in rows
+              if r["kernel"] == kernel and r.get("on_path", True)]
     out = {}
     for key in ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
                 "device_plain_ms", "device_library_ms", "profiled_ms"):
@@ -1885,7 +1967,7 @@ def main(argv=None) -> int:
         if name == "jacobi_eigh":
             kernels[-1]["device_library_from"] = "torch.profiler"
             kernels[-1]["profiled_ms"] = agg["profiled_ms"]
-        if name == "lowrank_linear":
+        if name in ("lowrank_linear", "jacobi_eigh"):
             kernels[-1]["launches_by_route"] = {
                 k: sum(r["routes"][name][k] for r in rounds)
                 for k in rounds[0]["routes"][name]}

@@ -115,6 +115,36 @@ def _schedule(n: int, device: torch.device):
             for p, q in zip(steps_p, steps_q)]
 
 
+def jacobi_rotation(app, aqq, apq):
+    """The CUDA Jacobi kernel's (c, s) for θ = ½·atan2(2a_pq, a_qq − a_pp)
+    without trigonometry, in fp32 with each reciprocal square root rounded
+    once (the kernel refines the hardware's estimate by a Newton step):
+    x = a_qq − a_pp and y = 2a_pq scaled by a power of two, ρ = |(x, y)|,
+    g = (1 + |x|/ρ)/2; for x ≥ 0, c = √g and s = sign(y)·|y|/(2ρc); for
+    x < 0 the two swap; (1, 0) where a_pq = 0. Tests hold it to cos θ and
+    sin θ; the plain version keeps the reference's atan2."""
+    app, aqq, apq = (torch.as_tensor(v, dtype=torch.float32)
+                     for v in (app, aqq, apq))
+    x, y = aqq - app, 2.0 * apq
+    big_xy = torch.maximum(x.abs(), y.abs())
+    e = torch.clamp((big_xy.view(torch.int32) >> 23) & 0xFF, max=253)
+    f = ((254 - e) << 23).view(torch.float32)            # 2^-exponent
+    xs, ys = x * f, y * f
+
+    def rsqrt(v):
+        return torch.rsqrt(v.double()).float()
+
+    ir = rsqrt(xs * xs + ys * ys)
+    g = 0.5 * (xs * ir).abs() + 0.5
+    rg = rsqrt(g)
+    big, small = g * rg, 0.5 * (ys * ir).abs() * rg
+    inner = x >= 0
+    c = torch.where(inner, big, small)
+    s = torch.copysign(torch.where(inner, small, big), y)
+    zero = apq == 0
+    return torch.where(zero, 1.0, c), torch.where(zero, 0.0, s)
+
+
 def jacobi_eigh_ref(a, *, sweeps: int = 12):
     """Parallel-order cyclic Jacobi on a (..., n, n) symmetric stack, in
     plain tensor ops: the reference kernel's arithmetic (θ = ½·atan2(2a_pq,
