@@ -42,6 +42,7 @@ card; imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import re
 import subprocess
@@ -132,6 +133,12 @@ EXPECTED_LAUNCHES = {
     1: {"galore_precond_step": 0, "jacobi_eigh": 3,
         "lowrank_linear": 168 * CLIENTS * LOCAL_STEPS},
 }
+# Round 0's GaLore launches by route (stated before the first run): the
+# buckets (4, 24, 1024, 1024) and (1, 24, 2816, 1024) project on the
+# right, (2, 24, 1024, 2816) on the left, every row 16-byte aligned; the
+# clip leaves the gradients in fp32, which loads into registers.
+EXPECTED_GALORE_ROUTES = {"right": 2 * CLIENTS * LOCAL_STEPS,
+                          "left": CLIENTS * LOCAL_STEPS}
 
 
 def emit(obj) -> None:
@@ -294,7 +301,9 @@ def sass_count(name: str, opcode: str) -> int:
 
 def phase_build():
     """One nvcc per source, all started together. rwkv6_scan's SASS must
-    hold no fused multiply-add (its order is the plain version's)."""
+    hold no fused multiply-add (its order is the plain version's); the
+    GaLore kernel's rank-8 instantiations (both sides, fp32 and bf16 g)
+    must not spill."""
     from repro_torch.kernels import _build
     for name, seconds in _build.build_all().items():
         row = {"phase": "build", "kernel": name, "seconds": seconds,
@@ -304,6 +313,12 @@ def phase_build():
         emit(row)
         check(row.get("ffma", 0) == 0,
               f"{name}: {row.get('ffma')} FFMA in the SASS")
+        if name == "galore_adamw":      # the rank-8 kernels the path runs
+            path = [f for f in row["ptxas"] if "<Li8E" in f["function"]]
+            check(len(path) == 4 and all(
+                f.get("spill_stores") == 0 == f.get("spill_loads")
+                for f in path), f"galore_adamw: the rank-8 kernels spill "
+                f"or are missing: {path}")
 
 
 # Route edges of the low-rank applies, (B, t, m, n): rows 1, 16, 17 (the
@@ -1160,8 +1175,18 @@ def _lowrank_key(x, w, basis, rt, scale, **kw):
 
 
 def _precond_key(g, basis, m, v, count, **kw):
-    return (tuple(g.shape), tuple(basis.shape),
-            bool(kw.get("project_back", True)))
+    """(g, basis shapes, project_back, g's dtype, the route plan() gives)
+    of one galore_precond_step call as ``ops`` receives it."""
+    from repro_torch.kernels import galore_adamw as ga
+    pb = bool(kw.get("project_back", True))
+    side = kw.get("side") or ga.infer_side(g.shape, basis.shape, m.shape)
+    mm, nn = g.shape[-2:]
+    route = ga.plan(side, mm, nn, basis.shape[-1], g.dtype,
+                    ga.PRECOND_U if pb else ga.PRECOND_UT,
+                    batch=g.numel() // (mm * nn),
+                    aligned=g.data_ptr() % 16 == 0).route
+    return (tuple(g.shape), tuple(basis.shape), pb,
+            str(g.dtype).split(".")[1], route)
 
 
 def _eigh_key(a, **kw):
@@ -1192,10 +1217,12 @@ def _lowrank_case(gen, shape_x, m, n, dtype):
     return dict(x=x, w=w, basis=basis, rt=rt, scale=scale, side=side)
 
 
-def _precond_case(gen, lead, mm, nn, r=TRAIN_R):
+def _precond_case(gen, lead, mm, nn, r=TRAIN_R, dtype=torch.float32):
+    """A GaLore step's operands, g in ``dtype`` (bf16 values drawn once)."""
     side = "right" if mm >= nn else "left"
     dim = nn if side == "right" else mm
-    g = 1e-3 * torch.randn(lead + (mm, nn), generator=gen, device="cuda")
+    g = (1e-3 * torch.randn(lead + (mm, nn), generator=gen,
+                            device="cuda")).to(dtype)
     basis = torch.linalg.qr(torch.randn(lead + (dim, r), generator=gen,
                                         device="cuda"))[0].contiguous()
     msh = lead + ((mm, r) if side == "right" else (r, nn))
@@ -1204,19 +1231,138 @@ def _precond_case(gen, lead, mm, nn, r=TRAIN_R):
     return dict(g=g, basis=basis, m=m, v=v, side=side)
 
 
+def _galore_check_run(ga, ref, c, g, w, mode, c1, c2):
+    """One GaLore kernel launch on case ``c`` with ``g`` (and ``w`` in
+    mode ADAMW): (outputs, route taken, plain version's outputs)."""
+    fn = ga.galore_adamw_step if mode == ga.ADAMW else ga.galore_precond_step
+    before = dict(fn.routes)
+    if mode == ga.ADAMW:
+        got = fn(w, g, c["basis"], c["m"], c["v"], 3, side=c["side"],
+                 lr=1e-3, weight_decay=0.01)
+        want = ref.galore_adamw_ref(w, g, c["basis"], c["m"], c["v"],
+                                    c1=c1, c2=c2, side=c["side"], lr=1e-3,
+                                    weight_decay=0.01)
+    else:
+        pb = mode == ga.PRECOND_U
+        got = fn(g, c["basis"], c["m"], c["v"], 3, side=c["side"],
+                 project_back=pb)
+        want = ref.galore_precond_ref(g, c["basis"], c["m"], c["v"], c1=c1,
+                                      c2=c2, side=c["side"],
+                                      project_back=pb)
+    torch.cuda.synchronize()
+    return got, _route_taken(fn, before), want
+
+
 def _spd_case(gen, lead, n):
     x = torch.randn(lead + (n, n + 3), generator=gen, device="cuda")
     return (x @ x.mT).contiguous()
 
 
+def galore_kernel_checks(gen, out):
+    """The GaLore kernel against its plain version (see below); adds each
+    kernel's worst absolute error and the launch keys checked to ``out``
+    ({name: [err, keys]})."""
+    from repro_torch.kernels import galore_adamw as ga
+    from repro_torch.kernels import ref
+    # The GaLore kernel, every mode: precond with ũ out (mode 0, the path:
+    # round 0's buckets (leaves, 24 layers, M, N)) and lifted (mode 1),
+    # adamw (mode 2, fp32 and bf16 w). Each case runs with an fp32 g, a
+    # bf16 g, and that bf16 g's values in fp32: all within 1e-5 of the
+    # plain version on u, m', v', and the bf16 run equal to its fp32 copy
+    # bit for bit (gated: the conversion is exact and the order the
+    # same). Beside the path: small and odd shapes on the scalar-load
+    # form (N % 8 != 0 with bf16, N % 4 != 0 with fp32, both sides),
+    # M = 1, N = 1, and ranks 1, 16 and 64. Each launch takes plan()'s
+    # route.
+    cases = [((4, 24), 1024, 1024, TRAIN_R, ga.PRECOND_UT),
+             ((2, 24), 1024, 2816, TRAIN_R, ga.PRECOND_UT),
+             ((1, 24), 2816, 1024, TRAIN_R, ga.PRECOND_UT),
+             ((1, 2), 1024, 2816, TRAIN_R, ga.PRECOND_U),
+             ((3,), 37, 20, TRAIN_R, ga.PRECOND_U),
+             ((3,), 37, 20, TRAIN_R, ga.PRECOND_UT),
+             ((2,), 20, 37, TRAIN_R, ga.PRECOND_U),
+             ((2,), 20, 37, TRAIN_R, ga.PRECOND_UT),
+             ((3,), 45, 38, TRAIN_R, ga.PRECOND_U),
+             ((2,), 24, 44, TRAIN_R, ga.PRECOND_U),
+             ((1,), 64, 1, 1, ga.PRECOND_U),
+             ((1,), 1, 64, 1, ga.PRECOND_U),
+             ((3,), 37, 20, 1, ga.PRECOND_U),
+             ((2,), 20, 37, 1, ga.PRECOND_UT),
+             ((2,), 300, 200, 16, ga.PRECOND_U),
+             ((2,), 200, 300, 16, ga.PRECOND_U),
+             ((2,), 200, 96, 64, ga.PRECOND_U),
+             ((2,), 96, 200, 64, ga.PRECOND_UT),
+             ((24,), 2816, 1024, TRAIN_R, ga.ADAMW),
+             ((24,), 1024, 2816, TRAIN_R, ga.ADAMW),
+             ((3,), 37, 20, TRAIN_R, ga.ADAMW),
+             ((2,), 20, 37, TRAIN_R, ga.ADAMW),
+             ((3,), 45, 38, 16, ga.ADAMW)]
+    c1, c2 = ga.bias_corrections(3, 0.9, 0.999)
+    for lead, mm, nn, r, mode in cases:
+        c32 = _precond_case(gen, lead, mm, nn, r)
+        g16 = c32["g"].to(torch.bfloat16)
+        w_dtypes = ((torch.bfloat16, torch.float32) if mode == ga.ADAMW
+                    else (None,))
+        for wdt in w_dtypes:
+            w = None if wdt is None else (0.02 * torch.randn(
+                lead + (mm, nn), generator=gen, device="cuda")).to(wdt)
+            outs = {}
+            for name, g in (("float32", c32["g"]), ("bfloat16", g16),
+                            ("bfloat16_as_float32", g16.float())):
+                got, route, want = _galore_check_run(ga, ref, c32, g, w,
+                                                     mode, c1, c2)
+                errs = [_rel(a, b) for a, b in zip(got, want)]
+                err = max((a.float() - b.float()).abs().max().item()
+                          for a, b in zip(got, want))
+                tol_w = None
+                ok = max(errs[1:]) <= 1e-5
+                if mode == ga.ADAMW:
+                    wscale = want[0].float().abs().max().item()
+                    tol_w = 1e-5 * wscale if wdt == torch.float32 else \
+                        bf16_ulp(wscale)
+                    ok = ok and (got[0].float() - want[0].float()).abs() \
+                        .max().item() <= tol_w
+                else:
+                    ok = ok and errs[0] <= 1e-5
+                planned = ga.plan(c32["side"], mm, nn, r, g.dtype, mode,
+                                  batch=int(np.prod(lead)),
+                                  w_dtype=wdt or torch.float32).route
+                kernel = ("galore_adamw_step" if mode == ga.ADAMW
+                          else "galore_precond_step")
+                row = {"phase": "train_kernel_check", "kernel": kernel,
+                       "g": list(g.shape), "g_dtype": name, "r": r,
+                       "mode": mode, "side": c32["side"], "route": route,
+                       "max_abs_err": err, "rel_err_u_m_v": errs,
+                       "tol_rel": 1e-5}
+                if w is not None:
+                    row.update(w_dtype=str(wdt).split(".")[1], tol_w=tol_w)
+                outs[name] = got
+                if name == "bfloat16_as_float32":
+                    row["bf16_equal_to_fp32_copy"] = all(
+                        torch.equal(a, b) for a, b in
+                        zip(outs["bfloat16"], got))
+                emit(row)
+                check(route == planned, f"{kernel} at {tuple(g.shape)} "
+                      f"{name} took route {route}, plan() says {planned}")
+                check(ok, f"{kernel} disagrees at {tuple(g.shape)} r={r} "
+                      f"mode {mode} {name}: {errs}")
+                check(row.get("bf16_equal_to_fp32_copy", True),
+                      f"{kernel} at {tuple(g.shape)} r={r} mode {mode}: a "
+                      "bf16 g and its fp32 copy give different results")
+                out[kernel][0] = max(out[kernel][0], err)
+                if mode != ga.ADAMW and name != "bfloat16_as_float32":
+                    out[kernel][1].add(_precond_key(
+                        g, c32["basis"], c32["m"], None, None,
+                        project_back=mode == ga.PRECOND_U))
+
+
 def phase_train_kernel_checks(gen):
     """Each training kernel against its plain version at every shape the
-    two rounds launch, plus masked tails, odd M, both sides, both
-    project_back values, fp32 and bf16, n = 1..64 and exact-zero
-    off-diagonals with a mask for the eigensolver. Returns per kernel the
-    worst absolute error and the keys checked."""
+    two rounds launch, plus masked tails, odd M, both sides, every GaLore
+    mode with fp32 and bf16 g (galore_kernel_checks), n = 1..64 and
+    exact-zero off-diagonals with a mask for the eigensolver. Returns per
+    kernel the worst absolute error and the keys checked."""
     from repro_torch.kernels import batched_eigh as be
-    from repro_torch.kernels import galore_adamw as ga
     from repro_torch.kernels import lowrank_linear as ll
     from repro_torch.kernels import ops, ref
     out = {k: [0.0, set()] for k in ("lowrank_linear", "galore_precond_step",
@@ -1267,61 +1413,7 @@ def phase_train_kernel_checks(gen):
         out["lowrank_linear"][1].add(_lowrank_key(c["x"], c["w"], None,
                                                   None, None))
 
-    # galore_precond_step: round 0's buckets (leaves, 24 layers, M, N),
-    # project_back=False; odd M / small blocks and project_back=True too.
-    cases = [((4, 24), 1024, 1024, False), ((2, 24), 1024, 2816, False),
-             ((1, 24), 2816, 1024, False), ((3,), 37, 20, True),
-             ((3,), 37, 20, False), ((2,), 20, 37, True),
-             ((2,), 20, 37, False), ((1, 2), 1024, 2816, True)]
-    for lead, mm, nn, pb in cases:
-        c = _precond_case(gen, lead, mm, nn)
-        got = ga.galore_precond_step(c["g"], c["basis"], c["m"], c["v"], 3,
-                                     side=c["side"], project_back=pb)
-        torch.cuda.synchronize()
-        c1, c2 = ga.bias_corrections(3, 0.9, 0.999)
-        want = ref.galore_precond_ref(c["g"], c["basis"], c["m"], c["v"],
-                                      c1=c1, c2=c2, side=c["side"],
-                                      project_back=pb)
-        errs = [_rel(a, b) for a, b in zip(got, want)]
-        err = max((a - b).abs().max().item() for a, b in zip(got, want))
-        emit({"phase": "train_kernel_check", "kernel": "galore_precond_step",
-              "g": list(c["g"].shape), "side": c["side"], "project_back": pb,
-              "max_abs_err": err, "rel_err_u_m_v": errs, "tol_rel": 1e-5})
-        check(max(errs) <= 1e-5, f"galore_precond_step disagrees at "
-              f"{tuple(c['g'].shape)} pb={pb}: {errs}")
-        out["galore_precond_step"][0] = max(out["galore_precond_step"][0],
-                                            err)
-        out["galore_precond_step"][1].add(_precond_key(
-            c["g"], c["basis"], None, None, None, project_back=pb))
-
-    # galore_adamw_step (tests only in the reference): both sides, bf16 and
-    # fp32 weights, odd M.
-    for lead, mm, nn, wdt in (((24,), 2816, 1024, torch.bfloat16),
-                              ((24,), 1024, 2816, torch.bfloat16),
-                              ((3,), 37, 20, torch.float32),
-                              ((2,), 20, 37, torch.float32)):
-        c = _precond_case(gen, lead, mm, nn)
-        w = (0.02 * torch.randn(lead + (mm, nn), generator=gen,
-                                device="cuda")).to(wdt)
-        got = ga.galore_adamw_step(w, c["g"], c["basis"], c["m"], c["v"], 3,
-                                   side=c["side"], lr=1e-3,
-                                   weight_decay=0.01)
-        torch.cuda.synchronize()
-        c1, c2 = ga.bias_corrections(3, 0.9, 0.999)
-        want = ref.galore_adamw_ref(w, c["g"], c["basis"], c["m"], c["v"],
-                                    c1=c1, c2=c2, side=c["side"], lr=1e-3,
-                                    weight_decay=0.01)
-        err = max((a.float() - b.float()).abs().max().item()
-                  for a, b in zip(got, want))
-        wscale = want[0].float().abs().max().item()
-        tol_w = 1e-5 * wscale if wdt == torch.float32 else bf16_ulp(wscale)
-        ok = ((got[0].float() - want[0].float()).abs().max().item() <= tol_w
-              and max(_rel(a, b) for a, b in zip(got[1:], want[1:])) <= 1e-5)
-        emit({"phase": "train_kernel_check", "kernel": "galore_adamw_step",
-              "w": list(w.shape), "dtype": str(wdt).split(".")[1],
-              "side": c["side"], "max_abs_err": err, "tol_w": tol_w})
-        check(ok, f"galore_adamw_step disagrees at {tuple(w.shape)}")
-        out["galore_adamw_step"][0] = max(out["galore_adamw_step"][0], err)
+    galore_kernel_checks(gen, out)
 
     # jacobi_eigh: 𝒮's Phase-1 Grams (bucket leaves, 24, 4 clients, 8, 8)
     # and (24, 4, 8, 8) for the singleton bucket; n = 1..64 in batches of
@@ -1499,6 +1591,16 @@ def phase_train(seed, card, checked):
                   f"{r['launches'][name]} times, expected {want}")
         _check_tc_routes(f"train round {r['round']}", r["launches"],
                          r["routes"])
+        if r["round"] == 0:
+            got = {k: v for k, v in r["routes"]["galore_precond_step"]
+                   .items() if v}
+            check(got == EXPECTED_GALORE_ROUTES,
+                  f"round 0: galore_precond_step routes {got}, expected "
+                  f"{EXPECTED_GALORE_ROUTES}")
+            planned = {key[-1] for key in seen["galore_precond_step"]}
+            check(planned == set(EXPECTED_GALORE_ROUTES),
+                  f"round 0: plan() gives routes {planned} for the "
+                  "launched GaLore buckets")
         check(r["routes"]["jacobi_eigh"]["warp"]
               == r["launches"]["jacobi_eigh"],
               f"round {r['round']}: jacobi_eigh routes "
@@ -1648,6 +1750,89 @@ def _timed(row, fns, sets, no_graph=(), warmup=5, iters=40, calls=20,
     return row
 
 
+def galore_times(gen, card):
+    """The GaLore kernel, its plain version and one local step's update,
+    timed (rows as phase_train_times')."""
+    from repro_torch.kernels import galore_adamw as ga
+    from repro_torch.kernels import ref
+    rows = []
+    c1, c2 = ga.bias_corrections(3, 0.9, 0.999)
+    # galore_precond_step at round 0's buckets, fp32 g (the path: the
+    # clip leaves the gradients in fp32) and bf16 g (an unclipped step);
+    # bound: g read in its own type, the basis, m and v read, m', v' and
+    # ũ written
+    for (lead, mm, nn), dtype in itertools.product(
+            (((4, 24), 1024, 1024), ((2, 24), 1024, 2816),
+             ((1, 24), 2816, 1024)), (torch.float32, torch.bfloat16)):
+        sets = [_precond_case(gen, lead, mm, nn, dtype=dtype)
+                for _ in range(2)]
+        c = sets[0]
+        blocks = int(np.prod(lead))
+        nbytes = (c["g"].numel() * c["g"].element_size()
+                  + 4 * (c["basis"].numel() + 5 * c["m"].numel()))
+        b_ms, b_by = _bound(nbytes,
+                            [(2.0 * blocks * mm * nn * TRAIN_R, PEAK_FP32)])
+        p = ga.plan(c["side"], mm, nn, TRAIN_R, dtype, ga.PRECOND_UT,
+                    batch=blocks)
+        row = {"phase": "train_times", "kernel": "galore_precond_step",
+               "card": card, "g": list(c["g"].shape),
+               "g_dtype": str(dtype).split(".")[1],
+               "on_path": dtype == torch.float32, "project_back": False,
+               "route": p.route, "grid": list(p.grid), "bytes": nbytes,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library": "no single call"}
+        _timed(row, {
+            "ms": lambda c: ga.galore_precond_step(
+                c["g"], c["basis"], c["m"], c["v"], 3, side=c["side"],
+                project_back=False),
+            "plain_ms": lambda c: ref.galore_precond_ref(
+                c["g"], c["basis"], c["m"], c["v"], c1=c1, c2=c2,
+                side=c["side"], project_back=False),
+            "library_ms": None}, sets)
+        row["device_gb_s"] = nbytes / row["device_ms"] / 1e6
+        row["of_bound"] = b_ms / row["device_ms"]
+        rows.append(row)
+        emit(row)
+        del sets
+    for dtype in (torch.float32, torch.bfloat16):
+        sets = [_precond_case(gen, (24,), 2816, 1024, dtype=dtype)
+                for _ in range(2)]
+        for c in sets:
+            c["w"] = (0.02 * torch.randn(c["g"].shape, generator=gen,
+                                         device="cuda")).to(torch.bfloat16)
+        c = sets[0]
+        nbytes = (c["g"].numel() * c["g"].element_size()
+                  + 4 * (c["basis"].numel() + 4 * c["m"].numel())
+                  + 2 * 2 * c["w"].numel())
+        b_ms, b_by = _bound(nbytes,
+                            [(4.0 * c["g"].numel() * TRAIN_R, PEAK_FP32)])
+        row = {"phase": "train_times", "kernel": "galore_adamw_step",
+               "card": card, "w": list(c["w"].shape), "w_dtype": "bfloat16",
+               "g_dtype": str(dtype).split(".")[1],
+               "on_path": dtype == torch.float32,
+               "route": ga.plan("right", 2816, 1024, TRAIN_R, dtype,
+                                ga.ADAMW, batch=24,
+                                w_dtype=torch.bfloat16).route,
+               "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+               "library": "no single call"}
+        _timed(row, {
+            "ms": lambda c: ga.galore_adamw_step(
+                c["w"], c["g"], c["basis"], c["m"], c["v"], 3,
+                side=c["side"]),
+            "plain_ms": lambda c: ref.galore_adamw_ref(
+                c["w"], c["g"], c["basis"], c["m"], c["v"], c1=c1, c2=c2,
+                side=c["side"]),
+            "library_ms": None}, sets)
+        row["device_gb_s"] = nbytes / row["device_ms"] / 1e6
+        row["of_bound"] = b_ms / row["device_ms"]
+        rows.append(row)
+        emit(row)
+        del sets
+    for row in galore_update_rows(gen, card):
+        emit(row)
+    return rows
+
+
 def phase_train_times(gen, card):
     """Each training kernel, its plain version and the library call at the
     path's shapes; the bound from each call's bytes and operations."""
@@ -1686,49 +1871,7 @@ def phase_train_times(gen, card):
             "library_ms": lambda c: torch.matmul(c["x"], c["w"])}, sets))
         emit(rows[-1])
         del sets
-    for lead, mm, nn in (((4, 24), 1024, 1024), ((2, 24), 1024, 2816),
-                         ((1, 24), 2816, 1024)):
-        sets = [_precond_case(gen, lead, mm, nn) for _ in range(2)]
-        c = sets[0]
-        blocks = int(np.prod(lead))
-        b_ms, b_by = _bound(
-            4 * (c["g"].numel() + c["basis"].numel() + 4 * c["m"].numel()),
-            [(2.0 * blocks * mm * nn * TRAIN_R, PEAK_FP32)])
-        row = {"phase": "train_times", "kernel": "galore_precond_step",
-               "card": card, "g": list(c["g"].shape), "project_back": False,
-               "bound_ms": b_ms, "bound_by": b_by,
-               "library": "no single call"}
-        rows.append(_timed(row, {
-            "ms": lambda c: ga.galore_precond_step(
-                c["g"], c["basis"], c["m"], c["v"], 3, side=c["side"],
-                project_back=False),
-            "plain_ms": lambda c: ref.galore_precond_ref(
-                c["g"], c["basis"], c["m"], c["v"], c1=c1, c2=c2,
-                side=c["side"], project_back=False),
-            "library_ms": None}, sets))
-        emit(rows[-1])
-        del sets
-    sets = [_precond_case(gen, (24,), 2816, 1024) for _ in range(2)]
-    for c in sets:
-        c["w"] = (0.02 * torch.randn(c["g"].shape, generator=gen,
-                                     device="cuda")).to(torch.bfloat16)
-    c = sets[0]
-    b_ms, b_by = _bound(
-        4 * (c["g"].numel() + c["basis"].numel() + 4 * c["m"].numel())
-        + 2 * 2 * c["w"].numel(),
-        [(4.0 * c["g"].numel() * TRAIN_R, PEAK_FP32)])
-    row = {"phase": "train_times", "kernel": "galore_adamw_step",
-           "card": card, "w": list(c["w"].shape), "w_dtype": "bfloat16",
-           "bound_ms": b_ms, "bound_by": b_by, "library": "no single call"}
-    rows.append(_timed(row, {
-        "ms": lambda c: ga.galore_adamw_step(
-            c["w"], c["g"], c["basis"], c["m"], c["v"], 3, side=c["side"]),
-        "plain_ms": lambda c: ref.galore_adamw_ref(
-            c["w"], c["g"], c["basis"], c["m"], c["v"], c1=c1, c2=c2,
-            side=c["side"]),
-        "library_ms": None}, sets))
-    emit(rows[-1])
-    del sets
+    rows += galore_times(gen, card)
     # jacobi_eigh: the three 𝒮 buckets of the path, then two shapes
     # recorded beside them (rank 16; a 64-client cohort, 6,144 matrices)
     eigh_cases = [((4, 24, CLIENTS), TRAIN_R, True),
@@ -1792,6 +1935,55 @@ def phase_train_times(gen, card):
               "seen_on_all": all(r["profiled_kernels"]
                                  == r["profiled_launches"] for r in path),
               "one_s_graph_ms": sum(r["device_ms"] for r in path)}})
+    return rows
+
+
+# One round-0 local step's GaLore update at full width: the seven target
+# leaves of qwen1.5-0.5b's 24 layers in their three buckets, rank 8, a step
+# that does not refresh the basis.
+GALORE_LEAVES = {"wq": (24, 1024, 1024), "wk": (24, 1024, 1024),
+                 "wv": (24, 1024, 1024), "wo": (24, 1024, 1024),
+                 "w_gate": (24, 1024, 2816), "w_up": (24, 1024, 2816),
+                 "w_down": (24, 2816, 1024)}
+
+
+def galore_update_rows(gen, card, iters=20):
+    """Eager ms (CUDA events around back-to-back calls) of one local
+    step's GaLore update through ``core.galore``: the bucket stacks, any
+    cast and the three kernel launches, ``galore_transform_update`` with
+    ``project_back=False`` on fp32 gradients (as the clip leaves them on
+    the path) and on bf16 gradients (an unclipped step); and the whole
+    optimizer step of the path, ``factored_adamw_step`` with clip_norm 1
+    on bf16 gradients. It calls only ``core.galore``'s public functions,
+    so it also times an earlier tree of the port."""
+    from repro_torch.core import galore as gal
+    cfg = gal.GaloreConfig(rank=TRAIN_R, refresh_every=10 ** 9)
+    params = {k: (0.02 * torch.randn(v, generator=gen, device="cuda"))
+              .to(torch.bfloat16) for k, v in GALORE_LEAVES.items()}
+    state = gal.galore_init(cfg, params, target_fn=lambda path, p: True)
+    state = state._replace(count=1)            # no refresh at this step
+    grads = {k: (1e-3 * torch.randn(v.shape, generator=gen, device="cuda"))
+             .to(torch.bfloat16) for k, v in params.items()}
+    grads32 = {k: v.float() for k, v in grads.items()}
+    deltas = gal.zero_client_deltas(state)
+    scale = torch.ones((), device="cuda")
+    fns = {
+        "transform_update_fp32_grads": lambda: gal.galore_transform_update(
+            cfg, grads32, state, project_back=False),
+        "transform_update_bf16_grads": lambda: gal.galore_transform_update(
+            cfg, grads, state, project_back=False),
+        "factored_adamw_step_clipped_bf16_grads":
+            lambda: gal.factored_adamw_step(
+                cfg, grads, state, deltas, scale, lr=TRAIN_LR,
+                weight_decay=0.01, clip_norm=1.0),
+    }
+    rows = []
+    for name, fn in fns.items():
+        ms = time_ms(lambda _: fn(), [None], warmup=5, iters=iters)
+        rows.append({"phase": "train_times", "kernel": "galore_update",
+                     "case": name, "card": card, "ms": ms,
+                     "leaves": {k: list(v) for k, v in
+                                GALORE_LEAVES.items()}})
     return rows
 
 
@@ -1938,8 +2130,9 @@ def main(argv=None) -> int:
         ("galore_precond_step", "src/repro_torch/kernels/csrc/galore_adamw.cu",
          "src/repro/kernels/galore_adamw.py:189", lambda r: 1,
          "one client's round-0 local step: the three shape buckets "
-         "(4,24,1024,1024) + (2,24,1024,2816) + (1,24,2816,1024) fp32, r=8, "
-         "project_back=False; no single library call computes it"),
+         "(4,24,1024,1024) + (2,24,1024,2816) + (1,24,2816,1024), g fp32 "
+         "as the clip leaves it on the path (bf16 rows in train_times), "
+         "r=8, project_back=False; no single library call computes it"),
         ("galore_adamw_step", "src/repro_torch/kernels/csrc/galore_adamw.cu",
          "src/repro/kernels/galore_adamw.py:145", lambda r: 1,
          "not on the path (tests only in the reference): w (24,2816,1024) "
@@ -1967,7 +2160,7 @@ def main(argv=None) -> int:
         if name == "jacobi_eigh":
             kernels[-1]["device_library_from"] = "torch.profiler"
             kernels[-1]["profiled_ms"] = agg["profiled_ms"]
-        if name in ("lowrank_linear", "jacobi_eigh"):
+        if name in ("lowrank_linear", "jacobi_eigh", "galore_precond_step"):
             kernels[-1]["launches_by_route"] = {
                 k: sum(r["routes"][name][k] for r in rounds)
                 for k in rounds[0]["routes"][name]}

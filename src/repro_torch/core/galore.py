@@ -185,20 +185,22 @@ def _bucketed_update(cfg: GaloreConfig, g_leaves, blk_leaves, count,
 
     for (shape, rank), idxs in sorted(buckets.items()):
         side = proj.proj_side(shape)
-        g32 = torch.stack([g_leaves[i] for i in idxs]).float()
+        gs = torch.stack([g_leaves[i] for i in idxs])
         basis = torch.stack([blk_leaves[i].basis for i in idxs])
         m = torch.stack([blk_leaves[i].m for i in idxs])
         v = torch.stack([blk_leaves[i].v for i in idxs])
         if do_refresh:
-            ids = torch.tensor(idxs, dtype=torch.int64, device=g32.device)
+            ids = torch.tensor(idxs, dtype=torch.int64, device=gs.device)
             keys = _block_keys(seed, refresh_idx, ids, shape[:-2],
-                               g32.device)
-            new = _new_basis(cfg, g32, keys, proj.basis_dim(shape), rank,
-                             side, refresh_idx)
+                               gs.device)
+            new = _new_basis(cfg, gs.float(), keys, proj.basis_dim(shape),
+                             rank, side, refresh_idx)
             m, v = _change_basis(m, v, basis, new, side)
             basis = new
+        # the kernel reads the stack in the gradients' own type (bf16 or
+        # fp32, converted exactly in registers)
         u, m, v = kops.galore_precond_step(
-            g32, basis, m, v, count, side=side, b1=cfg.b1, b2=cfg.b2,
+            gs, basis, m, v, count, side=side, b1=cfg.b1, b2=cfg.b2,
             eps=cfg.eps, bias_correction=cfg.bias_correction,
             project_back=project_back)
         for j, i in enumerate(idxs):

@@ -80,12 +80,20 @@ def lowrank_linear_batched(x, w, bases, rts, scales, ids, *, side=None):
         ids.to(torch.int32).contiguous(), side=side)
 
 
+def _kernel_g(g):
+    """g as the GaLore kernel reads it: fp32 or bf16 as it is, any other
+    type cast to fp32 (the plain versions compute in fp32 either way)."""
+    return (g if g.dtype in _galore.G_DTYPES else g.float()).contiguous()
+
+
 def galore_precond_step(g, basis, m, v, count, *, side=None, b1=0.9,
                         b2=0.999, eps=1e-8, bias_correction=True,
                         project_back=True):
     """Fused project → Adam → project-back on a stack of blocks; returns
     (u, m', v') — ``u`` fp32 (…, M, N), or ũ in the moment shape when
-    ``project_back`` is False. ``count`` is the post-increment step."""
+    ``project_back`` is False. ``count`` is the post-increment step. The
+    kernel reads an fp32 or bf16 g as it is; the conversion to fp32 is
+    exact, so either gives the same result."""
     _one_device("galore_precond_step", g, basis, m, v)
     side = side or _galore.infer_side(g.shape, basis.shape, m.shape)
     if not _kernel(g):
@@ -94,7 +102,7 @@ def galore_precond_step(g, basis, m, v, count, *, side=None, b1=0.9,
                                   b1=b1, b2=b2, eps=eps,
                                   project_back=project_back)
     return _galore.galore_precond_step(
-        g.float().contiguous(), basis.float().contiguous(),
+        _kernel_g(g), basis.float().contiguous(),
         m.float().contiguous(), v.float().contiguous(), count, side=side,
         b1=b1, b2=b2, eps=eps, bias_correction=bias_correction,
         project_back=project_back)
@@ -112,7 +120,7 @@ def galore_adamw_step(w, g, basis, m, v, count, *, side=None, b1=0.9,
                                 b1=b1, b2=b2, eps=eps, lr=lr,
                                 weight_decay=weight_decay)
     return _galore.galore_adamw_step(
-        w.contiguous(), g.float().contiguous(), basis.float().contiguous(),
+        w.contiguous(), _kernel_g(g), basis.float().contiguous(),
         m.float().contiguous(), v.float().contiguous(), count, side=side,
         b1=b1, b2=b2, eps=eps, lr=lr, weight_decay=weight_decay,
         bias_correction=bias_correction)

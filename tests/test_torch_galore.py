@@ -258,3 +258,156 @@ def test_layout_helpers(setup):
     back = tgal.with_projected_v(g, tree.tree_map(lambda x: -x, v))
     assert all(torch.all(b.v == 0) for b in _tblocks(back))
     assert tgal.with_seed(g, 2 ** 32 + 5).seed == 5
+
+
+# ------------------------------------------------ the CUDA kernel's plan --
+
+PLAN_SHAPES = [((4, 24), 1024, 1024), ((2, 24), 1024, 2816),
+               ((1, 24), 2816, 1024), ((3,), 37, 20), ((2,), 20, 37),
+               ((1, 2), 1024, 2816), ((1,), 1, 64), ((1,), 64, 1)]
+
+
+def _side(mm, nn):
+    return tkern.RIGHT if mm >= nn else tkern.LEFT
+
+
+@pytest.mark.parametrize("lead,mm,nn", PLAN_SHAPES)
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [8, 16, 64])
+def test_plan_covers_every_element_once(lead, mm, nn, g_dtype, r):
+    """Each row and each column of a batch item is visited once by the
+    kernel's loops (a right warp's row groups and lane's chunks, a left
+    block's columns and warp's rows), in every mode; the shared memory
+    fits a block, or plan() refuses the call."""
+    side = _side(mm, nn)
+    if r > min(mm, nn):
+        r = min(mm, nn)
+    batch = int(np.prod(lead))
+    for mode in (tkern.PRECOND_UT, tkern.PRECOND_U, tkern.ADAMW):
+        try:
+            p = tkern.plan(side, mm, nn, r, g_dtype, mode, batch=batch)
+        except ValueError:
+            dim = nn if side == tkern.RIGHT else mm
+            assert dim * -(-r // 4) * 16 > tkern.SMEM_LIMIT - 65536
+            continue
+        assert p.smem <= tkern.SMEM_LIMIT
+        assert p.grid[1] == batch and p.grid[0] >= 1
+        rows, cols = tkern.coverage(p, mm, nn)
+        assert torch.all(rows == 1) and torch.all(cols == 1)
+
+
+def test_plan_path_buckets():
+    """Round 0's buckets: fp32 g (as the clip leaves it) loads into
+    registers, bf16 g streams through the ring; rank 8 holds 8 rows a warp
+    or 8 columns a lane; the right grid fills the card's resident blocks
+    with at least 64 rows a block."""
+    for (lead, mm, nn), route in zip(PLAN_SHAPES[:3],
+                                     ("right", "left", "right")):
+        for g_dtype, suffix in ((torch.float32, ""),
+                                (torch.bfloat16, "_ring")):
+            p = tkern.plan(_side(mm, nn), mm, nn, 8, g_dtype,
+                           tkern.PRECOND_UT, batch=int(np.prod(lead)))
+            assert p.route == route + suffix and p.vec
+            assert (p.rmax, p.hold) == (8, 8)
+            if route == "right":
+                per_sm = min(tkern.RIGHT_BLOCKS_PER_SM,
+                             tkern.SMEM_PER_SM // (p.smem + 1024))
+                assert p.grid[0] * p.grid[1] <= tkern.H100_SMS * per_sm
+                assert p.tile >= tkern.MIN_TILE_ROWS
+            else:
+                assert p.tile == 256 and p.grid[0] == -(-nn // 256)
+
+
+@pytest.mark.parametrize("side", [tkern.RIGHT, tkern.LEFT])
+def test_plan_vector_loads_only_on_aligned_rows(side):
+    """Pieces of up to 16 bytes only where every row of g (and of u in mode
+    1, of w in mode 2) starts on a piece boundary, and never for an
+    unaligned pointer."""
+    for n in range(1, 41):
+        for g_dtype in (torch.float32, torch.bfloat16):
+            for mode, w_dtype in ((tkern.PRECOND_UT, torch.float32),
+                                  (tkern.PRECOND_U, torch.float32),
+                                  (tkern.ADAMW, torch.bfloat16)):
+                p = tkern.plan(side, 48, n, 8, g_dtype, mode,
+                               w_dtype=w_dtype)
+                sizes = [g_dtype.itemsize] + \
+                    ([4] if mode == tkern.PRECOND_U else []) + \
+                    ([2] if mode == tkern.ADAMW else [])
+                want = all(n % (16 // s) == 0 for s in sizes)
+                assert p.vec == want, (n, g_dtype, mode)
+                assert p.route.endswith("_scalar") == (not want)
+                assert not tkern.plan(side, 48, n, 8, g_dtype, mode,
+                                      w_dtype=w_dtype, aligned=False).vec
+
+
+def test_plan_route_follows_rank_and_dtype():
+    """The rank instantiation and what a lane holds follow r; the ring
+    follows g's type (and, on the left, whole 16-byte pieces a lane)."""
+    for r, rmax in ((1, 8), (8, 8), (9, 16), (16, 16), (17, 32), (33, 64),
+                    (64, 64)):
+        for side, mm, nn in ((tkern.RIGHT, 256, 128),
+                             (tkern.LEFT, 128, 256)):
+            p32 = tkern.plan(side, mm, nn, r, torch.float32,
+                             tkern.PRECOND_UT)
+            p16 = tkern.plan(side, mm, nn, r, torch.bfloat16,
+                             tkern.PRECOND_UT)
+            assert p32.rmax == p16.rmax == rmax
+            assert p32.hold == p16.hold == 64 // rmax
+            assert p32.route == side
+            ring = side == tkern.RIGHT or rmax == 8
+            assert p16.route == side + ("_ring" if ring else "")
+    with pytest.raises(ValueError):
+        tkern.rank_instance(65)
+    with pytest.raises(TypeError):
+        tkern.plan(tkern.RIGHT, 64, 64, 8, torch.float16, tkern.PRECOND_UT)
+    with pytest.raises(ValueError):    # a (1024, 64) basis is 256 KB
+        tkern.plan(tkern.RIGHT, 2048, 1024, 64, torch.float32,
+                   tkern.PRECOND_U)
+
+
+@pytest.mark.parametrize("side,m,n", [("right", 37, 20), ("left", 20, 44)])
+def test_bf16_g_equals_its_fp32_copy(side, m, n):
+    """On the CPU the ops entry points take the plain versions, which
+    compute in fp32: a bf16 g gives what its fp32 copy gives, bit for bit
+    (the kernel is gated the same way on the card)."""
+    rng = np.random.default_rng(3)
+    r, dim = 4, (n if side == "right" else m)
+    g = torch.from_numpy(rng.standard_normal((2, m, n)).astype(np.float32))
+    g = g.to(torch.bfloat16)
+    basis = torch.from_numpy(np.linalg.qr(rng.standard_normal(
+        (2, dim, r)))[0].astype(np.float32))
+    msh = (2,) + ((m, r) if side == "right" else (r, n))
+    mom = torch.from_numpy((0.1 * rng.standard_normal(msh)).astype(
+        np.float32))
+    vel = torch.from_numpy((0.01 * rng.random(msh)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((2, m, n)).astype(np.float32))
+    for pb in (True, False):
+        a = tops.galore_precond_step(g, basis, mom, vel, 4, project_back=pb)
+        b = tops.galore_precond_step(g.float(), basis, mom, vel, 4,
+                                     project_back=pb)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    a = tops.galore_adamw_step(w, g, basis, mom, vel, 4, lr=1e-2)
+    b = tops.galore_adamw_step(w, g.float(), basis, mom, vel, 4, lr=1e-2)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert tkern.galore_precond_step.launches == 0
+    assert sum(tkern.galore_precond_step.routes.values()) == 0
+
+
+def test_transform_update_bf16_grads_matches(setup):
+    """bf16 gradients through the bucketed update (stacked in bf16, read by
+    the kernel as they are) against JAX's, which casts them to fp32 before
+    its kernel: JAX is fed that exact fp32 copy, the shapes and types of
+    test_transform_update_matches, whose compiled program it reuses."""
+    tg = tree.tree_map(lambda g: g.to(torch.bfloat16), setup["tg"])
+    jg = jax.tree_util.tree_map(
+        lambda g: jnp.asarray(g.float().numpy()), tg)
+    jst = jgal.galore_state_of(setup["jst"])
+    tst = tgal.galore_state_of(setup["tst"])
+    ju, jn = jgal.galore_transform_update(setup["gcfg"], jg, jst,
+                                          project_back=True)
+    tu, tn = tgal.galore_transform_update(setup["tcfg"], tg, tst,
+                                          project_back=True)
+    assert all(x.dtype == torch.bfloat16 for x in tree.tree_leaves(tg))
+    for a, b in zip(jax.tree_util.tree_leaves(ju), tree.tree_leaves(tu)):
+        assert _rel(b.numpy(), a) <= 1e-5
+    _compare_states(jn, tn)
