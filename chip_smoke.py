@@ -15,7 +15,13 @@ weights from ``--seed``):
   ``FedEngine.run_round`` (4 clients, 2 local steps, batch 4 x 128, rank
   8) — round 0 through
   ``galore_precond_step`` and ``jacobi_eigh``, round 1 through
-  ``lowrank_linear`` and ``jacobi_eigh``;
+  ``lowrank_linear`` and ``jacobi_eigh``; at the same width and traffic
+  one round of each LoRA / dense baseline (no kernel) and two rounds of
+  the eager ``fedgalore`` oracle (``fused_round=False``: dense clients
+  through ``galore_precond_step`` with the update projected back, round
+  1's 𝒮 through ``jacobi_eigh``);
+* sampled decoding: ``categorical`` on the card against the CPU, and a
+  sampled ``generate`` / ``SlotServer`` run twice from one seed;
 * serving starcoder2-7b (32 layers, d 4608, 36 q heads on 4 kv heads of
   128, sliding window 4096): the same serving run with 8 adapters on its
   six target projections, and one long-context prefill of 8192 tokens on
@@ -48,6 +54,7 @@ import re
 import subprocess
 import sys
 import time
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -139,6 +146,25 @@ EXPECTED_LAUNCHES = {
 # clip leaves the gradients in fp32, which loads into registers.
 EXPECTED_GALORE_ROUTES = {"right": 2 * CLIENTS * LOCAL_STEPS,
                           "left": CLIENTS * LOCAL_STEPS}
+# The train_methods phase, at phase_train's traffic: the six LoRA and
+# dense methods for one round each (lora_scale 2.0), then two rounds of
+# fedgalore as the eager oracle (fused_round=False). Launches stated
+# before the first run: the six methods launch no kernel (the merged
+# LoRA weights and the model's products are plain torch). The eager
+# rounds' clients train dense leaves, so every step runs the lifted
+# preconditioner (galore_precond_step, mode PRECOND_U) once per shape
+# bucket, and jacobi_eigh runs only where 𝒮 takes the factored route:
+# never in the adaptive round 0 (each client's ṽ lifted with its own
+# basis, dense AJIVE), once per target leaf in round 1 (the shared-basis
+# factored AJIVE, leaf by leaf as the reference's eager 𝒮 runs it: 7
+# leaves, each a (24, 4, 8, 8) Gram stack on the warp route).
+LORA_METHODS = ("fedavg_full", "fedit", "ffa_lora", "lora_fair", "flora",
+                "fr_lora")
+LORA_SCALE = 2.0
+EAGER_LAUNCHES = {
+    0: {"galore_precond_step": 3 * CLIENTS * LOCAL_STEPS, "jacobi_eigh": 0},
+    1: {"galore_precond_step": 3 * CLIENTS * LOCAL_STEPS, "jacobi_eigh": 7},
+}
 
 
 def emit(obj) -> None:
@@ -1258,26 +1284,36 @@ def _spd_case(gen, lead, n):
     return (x @ x.mT).contiguous()
 
 
-def galore_kernel_checks(gen, out):
-    """The GaLore kernel against its plain version (see below); adds each
-    kernel's worst absolute error and the launch keys checked to ``out``
-    ({name: [err, keys]})."""
+# The GaLore checks run over GALORE_SEEDS draws (seeds base .. base + 4);
+# each mode and route reports its worst reading over all of them.
+GALORE_SEEDS = 5
+
+
+def galore_kernel_checks(seed, out):
+    """The GaLore kernel against its plain version (see below) over
+    GALORE_SEEDS draws; adds each kernel's worst absolute error and the
+    launch keys checked to ``out`` ({name: [err, keys]}) and emits the
+    worst reading of each mode and route."""
     from repro_torch.kernels import galore_adamw as ga
     from repro_torch.kernels import ref
-    # The GaLore kernel, every mode: precond with ũ out (mode 0, the path:
-    # round 0's buckets (leaves, 24 layers, M, N)) and lifted (mode 1),
-    # adamw (mode 2, fp32 and bf16 w). Each case runs with an fp32 g, a
-    # bf16 g, and that bf16 g's values in fp32: all within 1e-5 of the
-    # plain version on u, m', v', and the bf16 run equal to its fp32 copy
-    # bit for bit (gated: the conversion is exact and the order the
-    # same). Beside the path: small and odd shapes on the scalar-load
-    # form (N % 8 != 0 with bf16, N % 4 != 0 with fp32, both sides),
-    # M = 1, N = 1, and ranks 1, 16 and 64. Each launch takes plan()'s
-    # route.
-    cases = [((4, 24), 1024, 1024, TRAIN_R, ga.PRECOND_UT),
-             ((2, 24), 1024, 2816, TRAIN_R, ga.PRECOND_UT),
-             ((1, 24), 2816, 1024, TRAIN_R, ga.PRECOND_UT),
-             ((1, 2), 1024, 2816, TRAIN_R, ga.PRECOND_U),
+    # The GaLore kernel, every mode: precond with ũ out (mode 0, the
+    # factored round's path: round 0's buckets (leaves, 24 layers, M, N))
+    # and lifted (mode 1, the dense-client round's path at the same
+    # buckets), adamw (mode 2, fp32 and bf16 w). Each case runs with an
+    # fp32 g, a bf16 g, and that bf16 g's values in fp32: ũ or u, m' and
+    # v' within 1e-5 of the plain version's scale, the adamw w within
+    # 1e-5 (fp32) or a bf16 ulp of its scale, and the bf16 run equal to
+    # its fp32 copy bit for bit (gated: the conversion is exact and the
+    # order the same). Beside the path: small
+    # and odd shapes on the scalar-load form (N % 8 != 0 with bf16, N % 4
+    # != 0 with fp32, both sides), M = 1, N = 1, and ranks 1, 16 and 64.
+    # Each launch takes plan()'s route.
+    path = [((4, 24), 1024, 1024), ((2, 24), 1024, 2816),
+            ((1, 24), 2816, 1024)]
+    cases = [(lead, mm, nn, TRAIN_R, mode) for mode in (ga.PRECOND_UT,
+                                                        ga.PRECOND_U)
+             for lead, mm, nn in path] + \
+            [((1, 2), 1024, 2816, TRAIN_R, ga.PRECOND_U),
              ((3,), 37, 20, TRAIN_R, ga.PRECOND_U),
              ((3,), 37, 20, TRAIN_R, ga.PRECOND_UT),
              ((2,), 20, 37, TRAIN_R, ga.PRECOND_U),
@@ -1298,65 +1334,86 @@ def galore_kernel_checks(gen, out):
              ((2,), 20, 37, TRAIN_R, ga.ADAMW),
              ((3,), 45, 38, 16, ga.ADAMW)]
     c1, c2 = ga.bias_corrections(3, 0.9, 0.999)
-    for lead, mm, nn, r, mode in cases:
-        c32 = _precond_case(gen, lead, mm, nn, r)
-        g16 = c32["g"].to(torch.bfloat16)
-        w_dtypes = ((torch.bfloat16, torch.float32) if mode == ga.ADAMW
-                    else (None,))
-        for wdt in w_dtypes:
-            w = None if wdt is None else (0.02 * torch.randn(
-                lead + (mm, nn), generator=gen, device="cuda")).to(wdt)
-            outs = {}
-            for name, g in (("float32", c32["g"]), ("bfloat16", g16),
-                            ("bfloat16_as_float32", g16.float())):
-                got, route, want = _galore_check_run(ga, ref, c32, g, w,
-                                                     mode, c1, c2)
-                errs = [_rel(a, b) for a, b in zip(got, want)]
-                err = max((a.float() - b.float()).abs().max().item()
-                          for a, b in zip(got, want))
-                tol_w = None
-                ok = max(errs[1:]) <= 1e-5
-                if mode == ga.ADAMW:
-                    wscale = want[0].float().abs().max().item()
-                    tol_w = 1e-5 * wscale if wdt == torch.float32 else \
-                        bf16_ulp(wscale)
-                    ok = ok and (got[0].float() - want[0].float()).abs() \
-                        .max().item() <= tol_w
-                else:
-                    ok = ok and errs[0] <= 1e-5
-                planned = ga.plan(c32["side"], mm, nn, r, g.dtype, mode,
-                                  batch=int(np.prod(lead)),
-                                  w_dtype=wdt or torch.float32).route
-                kernel = ("galore_adamw_step" if mode == ga.ADAMW
-                          else "galore_precond_step")
-                row = {"phase": "train_kernel_check", "kernel": kernel,
-                       "g": list(g.shape), "g_dtype": name, "r": r,
-                       "mode": mode, "side": c32["side"], "route": route,
-                       "max_abs_err": err, "rel_err_u_m_v": errs,
-                       "tol_rel": 1e-5}
-                if w is not None:
-                    row.update(w_dtype=str(wdt).split(".")[1], tol_w=tol_w)
-                outs[name] = got
-                if name == "bfloat16_as_float32":
-                    row["bf16_equal_to_fp32_copy"] = all(
-                        torch.equal(a, b) for a, b in
-                        zip(outs["bfloat16"], got))
+    worst, failed = {}, []
+    for k in range(GALORE_SEEDS):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed + k)
+        for lead, mm, nn, r, mode in cases:
+            _galore_case_checks(ga, ref, gen, lead, mm, nn, r, mode, c1,
+                                c2, out, worst, failed, show=k == 0)
+    for (kernel, mode, route), w in sorted(worst.items()):
+        emit({"phase": "train_kernel_check", "kernel": kernel,
+              "mode": mode, "route": route, "seeds": GALORE_SEEDS,
+              "worst_over_seeds": w, "tol_rel": 1e-5})
+    check(not failed, f"the GaLore kernel disagrees with its plain version "
+          f"in {len(failed)} checks: {failed[:4]}")
+
+
+def _galore_case_checks(ga, ref, gen, lead, mm, nn, r, mode, c1, c2, out,
+                        worst, failed, show):
+    """One case of galore_kernel_checks with an fp32 g, a bf16 g and the
+    bf16 g's values in fp32."""
+    c32 = _precond_case(gen, lead, mm, nn, r)
+    g16 = c32["g"].to(torch.bfloat16)
+    kernel = ("galore_adamw_step" if mode == ga.ADAMW
+              else "galore_precond_step")
+    w_dtypes = ((torch.bfloat16, torch.float32) if mode == ga.ADAMW
+                else (None,))
+    for wdt in w_dtypes:
+        w = None if wdt is None else (0.02 * torch.randn(
+            lead + (mm, nn), generator=gen, device="cuda")).to(wdt)
+        outs = {}
+        for name, g in (("float32", c32["g"]), ("bfloat16", g16),
+                        ("bfloat16_as_float32", g16.float())):
+            got, route, want = _galore_check_run(ga, ref, c32, g, w, mode,
+                                                 c1, c2)
+            errs = [_rel(a, b) for a, b in zip(got, want)]
+            err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(got, want))
+            row = {"phase": "train_kernel_check", "kernel": kernel,
+                   "g": list(g.shape), "g_dtype": name, "r": r,
+                   "mode": mode, "side": c32["side"], "route": route,
+                   "max_abs_err": err, "rel_err_u_m_v": errs,
+                   "tol_rel": 1e-5}
+            ok = max(errs[1:]) <= 1e-5
+            reading = {"rel_w" if mode == ga.ADAMW else "rel_u": errs[0],
+                       "rel_m": errs[1], "rel_v": errs[2]}
+            if mode == ga.ADAMW:
+                wscale = want[0].float().abs().max().item()
+                tol_w = 1e-5 * wscale if wdt == torch.float32 else \
+                    bf16_ulp(wscale)
+                ok = ok and (got[0].float() - want[0].float()).abs() \
+                    .max().item() <= tol_w
+                row.update(w_dtype=str(wdt).split(".")[1], tol_w=tol_w)
+            else:
+                ok = ok and errs[0] <= 1e-5
+            planned = ga.plan(c32["side"], mm, nn, r, g.dtype, mode,
+                              batch=int(np.prod(lead)),
+                              w_dtype=wdt or torch.float32).route
+            outs[name] = got
+            if name == "bfloat16_as_float32":
+                row["bf16_equal_to_fp32_copy"] = all(
+                    torch.equal(a, b) for a, b in zip(outs["bfloat16"], got))
+                ok = ok and row["bf16_equal_to_fp32_copy"]
+            if show:
                 emit(row)
-                check(route == planned, f"{kernel} at {tuple(g.shape)} "
-                      f"{name} took route {route}, plan() says {planned}")
-                check(ok, f"{kernel} disagrees at {tuple(g.shape)} r={r} "
-                      f"mode {mode} {name}: {errs}")
-                check(row.get("bf16_equal_to_fp32_copy", True),
-                      f"{kernel} at {tuple(g.shape)} r={r} mode {mode}: a "
-                      "bf16 g and its fp32 copy give different results")
-                out[kernel][0] = max(out[kernel][0], err)
-                if mode != ga.ADAMW and name != "bfloat16_as_float32":
-                    out[kernel][1].add(_precond_key(
-                        g, c32["basis"], c32["m"], None, None,
-                        project_back=mode == ga.PRECOND_U))
+            check(route == planned, f"{kernel} at {tuple(g.shape)} {name} "
+                  f"took route {route}, plan() says {planned}")
+            key = (kernel, mode, route)
+            acc = worst.setdefault(key, {})
+            for k, val in reading.items():
+                acc[k] = max(acc.get(k, 0.0), val)
+            if not ok:
+                failed.append({"g": list(g.shape), "g_dtype": name, "r": r,
+                               "mode": mode, **reading})
+            out[kernel][0] = max(out[kernel][0], err)
+            if mode != ga.ADAMW and name != "bfloat16_as_float32":
+                out[kernel][1].add(_precond_key(
+                    g, c32["basis"], c32["m"], None, None,
+                    project_back=mode == ga.PRECOND_U))
 
 
-def phase_train_kernel_checks(gen):
+def phase_train_kernel_checks(gen, seed):
     """Each training kernel against its plain version at every shape the
     two rounds launch, plus masked tails, odd M, both sides, every GaLore
     mode with fp32 and bf16 g (galore_kernel_checks), n = 1..64 and
@@ -1413,7 +1470,7 @@ def phase_train_kernel_checks(gen):
         out["lowrank_linear"][1].add(_lowrank_key(c["x"], c["w"], None,
                                                   None, None))
 
-    galore_kernel_checks(gen, out)
+    galore_kernel_checks(seed, out)
 
     # jacobi_eigh: 𝒮's Phase-1 Grams (bucket leaves, 24, 4 clients, 8, 8)
     # and (24, 4, 8, 8) for the singleton bucket; n = 1..64 in batches of
@@ -1477,9 +1534,10 @@ def phase_train_kernel_checks(gen):
     return out
 
 
-def _train_setup(seed):
+def _train_setup(seed, method="fedgalore", **fed_kw):
     """Full-width qwen1.5-0.5b (bf16, random weights from ``seed``), the
-    FedGaLore engine and its batcher."""
+    engine of ``method`` (FedConfig fields ``fed_kw`` on top) and its
+    batcher."""
     from repro_torch.configs import get_config
     from repro_torch.core.fed import FedConfig, FedEngine
     from repro_torch.data import FederatedBatcher, seq_classification
@@ -1494,8 +1552,9 @@ def _train_setup(seed):
     batcher = FederatedBatcher(task, n_clients=CLIENTS, batch_size=TRAIN_B,
                                alpha=0.5, seed=seed)
     engine = FedEngine(
-        FedConfig(method="fedgalore", rank=TRAIN_R, lr=TRAIN_LR,
-                  local_steps=LOCAL_STEPS, seed=seed),
+        FedConfig(method=method, rank=TRAIN_R, lr=TRAIN_LR,
+                  local_steps=LOCAL_STEPS, seed=seed, lora_scale=LORA_SCALE,
+                  **fed_kw),
         loss_fn=lambda p, b: model_lib.loss_fn(p, cfg, b), params=params,
         target_fn=galore_target_fn(cfg))
     return cfg, engine, batcher
@@ -1535,13 +1594,16 @@ def _zero_counts():
             fn.routes = dict.fromkeys(fn.routes, 0)
 
 
-def _run_train(seed, plain: bool):
-    """Two FedGaLore rounds; returns per-round losses, times and launch
-    counts, the global target leaves at the start, after round 0 and at
-    the end (``snaps``), and the shapes each kernel saw."""
+def _run_train(seed, plain: bool, **fed_kw):
+    """Two FedGaLore rounds (FedConfig fields ``fed_kw`` on top); returns
+    per-round losses, times, 𝒮's seconds and launch counts, the global
+    target leaves at the start, after round 0 and at the end (``snaps``),
+    and the shapes each kernel saw."""
     from repro_torch.kernels import ops
     from repro_torch.utils import tree
-    cfg, engine, batcher = _train_setup(seed)
+    cfg, engine, batcher = _train_setup(seed, **fed_kw)
+    sync_s = _time_method(engine, "_sync_states_eager",
+                          _time_method(engine, "_sync_states"))
 
     def snap():
         return [x.detach().clone()
@@ -1563,9 +1625,10 @@ def _run_train(seed, plain: bool):
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             rounds.append({"round": rnd, "seconds": seconds,
-                           "launches": _launch_counts(),
+                           "sync_s": sum(sync_s), "launches": _launch_counts(),
                            "routes": _route_counts(),
                            "losses": metrics["local_loss"].cpu()})
+            sync_s.clear()
             snaps["round0" if rnd == 0 else "final"] = snap()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     return cfg, engine, rounds, snaps, log.seen, peak
@@ -1598,6 +1661,9 @@ def phase_train(seed, card, checked):
                   f"round 0: galore_precond_step routes {got}, expected "
                   f"{EXPECTED_GALORE_ROUTES}")
             planned = {key[-1] for key in seen["galore_precond_step"]}
+            check({key[2] for key in seen["galore_precond_step"]}
+                  == {False}, "the training path ran the preconditioner "
+                  "with the update projected back")
             check(planned == set(EXPECTED_GALORE_ROUTES),
                   f"round 0: plan() gives routes {planned} for the "
                   "launched GaLore buckets")
@@ -1632,6 +1698,215 @@ def phase_train(seed, card, checked):
     return rounds, snaps, launches
 
 
+def _time_method(engine, name, seconds=None):
+    """Wrap ``engine.<name>`` to append each call's seconds (fenced by
+    synchronize) to ``seconds`` (a new list by default), returned. The
+    wrapper holds the engine weakly, so ``del engine`` still frees it."""
+    seconds = [] if seconds is None else seconds
+    inner, ref = getattr(type(engine), name), weakref.ref(engine)
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(ref(), *args, **kw)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    setattr(engine, name, timed)
+    return seconds
+
+
+def _eager_routes():
+    """galore_precond_step's launches by route in one eager round, from
+    plan() for the three buckets in mode PRECOND_U with the fp32 g the
+    clip hands it (stated before the run)."""
+    from repro_torch.kernels import galore_adamw as ga
+    routes = {}
+    for (mm, nn), leaves in TRAIN_SHAPES.items():
+        side = "right" if mm >= nn else "left"
+        route = ga.plan(side, mm, nn, TRAIN_R, torch.float32, ga.PRECOND_U,
+                        batch=leaves * 24).route
+        routes[route] = routes.get(route, 0) + CLIENTS * LOCAL_STEPS
+    return routes
+
+
+def svd_stack_check(seed, card, batch=16):
+    """The card's stacked SVD (``projector._svd_card``, several matrices in
+    flight on side streams) against ``torch.linalg.svd`` of each matrix
+    alone, bit for bit, on stacks of the eager 𝒮's Phase-1 views (rank 8)
+    and full-rank matrices at the path's widths, each timed both ways."""
+    from repro_torch.core import projector as proj
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for (mm, nn), rank in itertools.product(((1024, 1024), (1024, 2816)),
+                                            (TRAIN_R, None)):
+        if rank is None:
+            x = torch.randn((batch, mm, nn), generator=gen, device="cuda")
+        else:
+            v = torch.rand((batch, mm, rank), generator=gen, device="cuda")
+            b, _ = torch.linalg.qr(torch.randn((batch, nn, rank),
+                                               generator=gen, device="cuda"))
+            x = v @ b.mT
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        alone = [torch.linalg.svd(m, full_matrices=False) for m in x]
+        torch.cuda.synchronize()
+        alone_s = time.perf_counter() - t0
+        stacked_s = {}
+        default = proj.SVD_STREAMS
+        try:
+            for streams in (4, 16, default):
+                proj.SVD_STREAMS = streams
+                t0 = time.perf_counter()
+                got = proj._svd_card(x)
+                torch.cuda.synchronize()
+                stacked_s[streams] = time.perf_counter() - t0
+        finally:
+            proj.SVD_STREAMS = default
+        equal = all(torch.equal(got[j][i], alone[i][j])
+                    for i in range(batch) for j in range(3))
+        emit({"phase": "svd_stack_check", "card": card,
+              "stack": [batch, mm, nn], "rank": rank or min(mm, nn),
+              "streams": default, "alone_s": alone_s,
+              "stacked_s_by_streams": stacked_s, "bitwise_equal": equal})
+        check(equal, f"the stacked SVD of ({batch}, {mm}, {nn}) differs "
+              "from torch.linalg.svd of each matrix alone")
+
+
+def phase_train_methods(seed, card, checked):
+    """The LoRA and dense methods and the eager oracle round at full
+    width (see LORA_METHODS / EAGER_LAUNCHES). Returns the eager rounds'
+    records as phase_train's."""
+    from repro_torch.utils import tree
+    for method in LORA_METHODS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 2 ** 30
+        _, engine, batcher = _train_setup(seed, method)
+        agg_s = _time_method(engine, "_aggregate_pure")
+        batches = batcher.round_batches(LOCAL_STEPS)
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        metrics = engine.run_round(batches)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _launch_counts()
+        losses = metrics["local_loss"].cpu()
+        leaves = tree.tree_leaves(engine.global_trainable) + \
+            tree.tree_leaves(engine.frozen)
+        row = {"phase": "train_methods", "method": method, "card": card,
+               "clients": CLIENTS, "local_steps": LOCAL_STEPS,
+               "batch": TRAIN_B, "seq": TRAIN_L, "rank": TRAIN_R,
+               "lora_scale": LORA_SCALE, "round_s": seconds,
+               "aggregate_s": sum(agg_s), "resident_gib": resident,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "launches": launches, "losses": losses.tolist()}
+        emit(row)
+        check(tuple(losses.shape) == (CLIENTS, LOCAL_STEPS)
+              and bool(torch.isfinite(losses).all()),
+              f"{method}: losses {losses}")
+        check(all(bool(torch.isfinite(x.float()).all()) for x in leaves),
+              f"{method}: non-finite global leaves after a round")
+        check(sum(launches.values()) == 0,
+              f"{method} launched kernels it does not run: {launches}")
+        del engine, leaves
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, engine, rounds, snaps, seen, peak = _run_train(
+        seed, plain=False, fused_round=False)
+    del engine
+    want_routes = _eager_routes()
+    for name, keys in seen.items():
+        check(keys <= checked[name][1], f"the eager round launched {name} "
+              f"at shapes the checks did not cover: "
+              f"{sorted(keys - checked[name][1])}")
+    check({key[2] for key in seen["galore_precond_step"]} == {True},
+          "the eager round ran the preconditioner without the lift")
+    for r in rounds:
+        check(tuple(r["losses"].shape) == (CLIENTS, LOCAL_STEPS)
+              and bool(torch.isfinite(r["losses"]).all()),
+              f"eager round {r['round']}: losses {r['losses']}")
+        want = {name: EAGER_LAUNCHES[r["round"]].get(name, 0)
+                for name in r["launches"]}
+        check(r["launches"] == want, f"eager round {r['round']}: launches "
+              f"{r['launches']}, expected {want}")
+        got = {k: v for k, v in r["routes"]["galore_precond_step"].items()
+               if v}
+        check(got == want_routes, f"eager round {r['round']}: "
+              f"galore_precond_step routes {got}, expected {want_routes}")
+        check(r["routes"]["jacobi_eigh"]["warp"]
+              == r["launches"]["jacobi_eigh"],
+              f"eager round {r['round']}: jacobi_eigh routes "
+              f"{r['routes']['jacobi_eigh']}")
+        emit({"phase": "train_methods", "method": "fedgalore",
+              "fused_round": False, "card": card, "round": r["round"],
+              "clients": CLIENTS, "local_steps": LOCAL_STEPS,
+              "batch": TRAIN_B, "seq": TRAIN_L, "rank": TRAIN_R,
+              "round_s": r["seconds"], "sync_s": r["sync_s"],
+              "launches": r["launches"], "routes": r["routes"],
+              "losses": r["losses"].tolist()})
+    emit({"phase": "train_methods", "method": "fedgalore",
+          "fused_round": False, "peak_gib": peak,
+          "kernel_shapes": {k: sorted(v) for k, v in seen.items()}})
+    phase_train_parity(seed, rounds, snaps, phase="train_methods_parity",
+                       fused_round=False)
+    return rounds
+
+
+def phase_sampling(cfg, served, seed, card):
+    """Sampled decoding on JAX's key chain: ``categorical`` on fixed
+    (8, vocab) fp32 logits gives the same tokens on the card as on the
+    CPU (the threefry arithmetic in int64 on CUDA), and a short sampled
+    ``generate`` and ``SlotServer`` decode at temperature 0.8 give valid
+    ids, the same twice from one seed."""
+    from repro_torch.launch import serve
+    from repro_torch.utils import prng
+    rng = np.random.default_rng(seed + 7)
+    logits = torch.from_numpy(
+        (3.0 * rng.standard_normal((8, cfg.vocab_size))).astype(np.float32))
+    key = prng.fold_in(prng.PRNGKey(seed), 11)
+    cpu = prng.categorical(key, logits)
+    card_tok = prng.categorical(key.cuda(), logits.cuda()).cpu()
+    noise_gap = (prng.gumbel(key.cuda(), logits.shape).cpu()
+                 - prng.gumbel(key, logits.shape)).abs().max().item()
+    prompts = rng.integers(0, cfg.vocab_size, (B, PROMPT), dtype=np.int32)
+    n_new = 8
+
+    def sampled():
+        gen = serve.generate(served, cfg, prompts, n_new, PROMPT + n_new,
+                             temperature=0.8, seed=seed,
+                             adapters=np.arange(B) % G)
+        srv = serve.SlotServer(served, cfg, slots=B // 2,
+                               cache_len=PROMPT + n_new, segment=4,
+                               temperature=0.8, seed=seed)
+        out = srv.run([serve.Request(rid=i, prompt=prompts[i], max_new=n_new,
+                                     adapter=i % G) for i in range(B)])
+        return gen[:, PROMPT:].cpu(), out["outputs"]
+
+    t0 = time.perf_counter()
+    (gen_a, slot_a), (gen_b, slot_b) = sampled(), sampled()
+    torch.cuda.synchronize()
+    greedy = serve.generate(served, cfg, prompts, n_new, PROMPT + n_new,
+                            adapters=np.arange(B) % G)[:, PROMPT:].cpu()
+    ids = [v for row in slot_a.values() for v in row] + gen_a.flatten() \
+        .tolist()
+    emit({"phase": "sampling", "arch": cfg.name, "card": card,
+          "categorical_cpu": cpu.tolist(), "categorical_card":
+          card_tok.tolist(), "gumbel_card_vs_cpu_max_abs": noise_gap,
+          "temperature": 0.8, "new_tokens": n_new,
+          "generate_tokens": gen_a.tolist(),
+          "slot_outputs": {str(k): v for k, v in slot_a.items()},
+          "differs_from_greedy": not torch.equal(gen_a, greedy),
+          "seconds": time.perf_counter() - t0})
+    check(torch.equal(cpu, card_tok), f"categorical on the card {card_tok} "
+          f"is not the CPU's {cpu}")
+    check(all(0 <= v < cfg.vocab_size for v in ids) and len(ids) == 2 * B
+          * n_new, "sampled decoding gave invalid or missing token ids")
+    check(torch.equal(gen_a, gen_b) and slot_a == slot_b,
+          "two sampled runs from one seed gave different tokens")
+
+
 def _change_rel(got, want, init):
     """How far the change ``got - init`` is from ``want - init``: the
     Frobenius norm of the difference over that of ``want - init``, and
@@ -1648,14 +1923,15 @@ def _change_rel(got, want, init):
     return (num / max(den, 1e-30)) ** 0.5, max_num / max(max_den, 1e-30)
 
 
-def phase_train_parity(seed, rounds, snaps):
+def phase_train_parity(seed, rounds, snaps, phase="train_parity", **fed_kw):
     """The same two rounds with every kernel's plain version, compared per
     step loss and by the change of the global leaves from their start.
     Two controls show the leaves' bound fails where a round's update is
     lost: the kernel run's leaves after round 0 (round 1's update
     dropped), and its end leaves less round 0's change (round 0's update
     dropped)."""
-    _, engine, plain_rounds, plain, _, _ = _run_train(seed, plain=True)
+    _, engine, plain_rounds, plain, _, _ = _run_train(seed, plain=True,
+                                                      **fed_kw)
     for r in plain_rounds:
         check(sum(r["launches"].values()) == 0,
               f"plain run launched kernels: {r['launches']}")
@@ -1671,7 +1947,7 @@ def phase_train_parity(seed, rounds, snaps):
     controls = {"round1_dropped": _change_rel(snaps["round0"], want,
                                               init)[0],
                 "round0_dropped": _change_rel(no_round0, want, init)[0]}
-    emit({"phase": "train_parity", "rounds": 2,
+    emit({"phase": phase, "rounds": 2,
           "max_abs_loss_diff": loss_diff, "loss_bound": TRAIN_LOSS_BOUND,
           "delta_rel_fro": delta_rel, "delta_bound": TRAIN_DELTA_BOUND,
           "delta_rel_max": delta_max_rel, "controls": controls,
@@ -1757,37 +2033,44 @@ def galore_times(gen, card):
     from repro_torch.kernels import ref
     rows = []
     c1, c2 = ga.bias_corrections(3, 0.9, 0.999)
-    # galore_precond_step at round 0's buckets, fp32 g (the path: the
-    # clip leaves the gradients in fp32) and bf16 g (an unclipped step);
-    # bound: g read in its own type, the basis, m and v read, m', v' and
-    # ũ written
-    for (lead, mm, nn), dtype in itertools.product(
+    # galore_precond_step at the path's three buckets in both modes:
+    # PRECOND_UT (round 0 of the factored round) and PRECOND_U (the
+    # dense-client round's step, the eager oracle), fp32 g (the path: the
+    # clip leaves the gradients in fp32) and bf16 g (an unclipped step).
+    # Bound: g read in its own type, the basis, m and v read, m' and v'
+    # written, and ũ (PRECOND_UT) or u, fp32 M x N (PRECOND_U), written;
+    # operations: the projection, and the lift in PRECOND_U.
+    for mode, (lead, mm, nn), dtype in itertools.product(
+            (ga.PRECOND_UT, ga.PRECOND_U),
             (((4, 24), 1024, 1024), ((2, 24), 1024, 2816),
              ((1, 24), 2816, 1024)), (torch.float32, torch.bfloat16)):
+        back = mode == ga.PRECOND_U
         sets = [_precond_case(gen, lead, mm, nn, dtype=dtype)
                 for _ in range(2)]
         c = sets[0]
         blocks = int(np.prod(lead))
         nbytes = (c["g"].numel() * c["g"].element_size()
-                  + 4 * (c["basis"].numel() + 5 * c["m"].numel()))
-        b_ms, b_by = _bound(nbytes,
-                            [(2.0 * blocks * mm * nn * TRAIN_R, PEAK_FP32)])
-        p = ga.plan(c["side"], mm, nn, TRAIN_R, dtype, ga.PRECOND_UT,
-                    batch=blocks)
+                  + 4 * (c["basis"].numel() + (4 if back else 5)
+                         * c["m"].numel())
+                  + (4 * c["g"].numel() if back else 0))
+        b_ms, b_by = _bound(nbytes, [((4.0 if back else 2.0) * blocks * mm
+                                      * nn * TRAIN_R, PEAK_FP32)])
+        p = ga.plan(c["side"], mm, nn, TRAIN_R, dtype, mode, batch=blocks)
         row = {"phase": "train_times", "kernel": "galore_precond_step",
                "card": card, "g": list(c["g"].shape),
                "g_dtype": str(dtype).split(".")[1],
-               "on_path": dtype == torch.float32, "project_back": False,
-               "route": p.route, "grid": list(p.grid), "bytes": nbytes,
-               "bound_ms": b_ms, "bound_by": b_by,
+               "on_path": dtype == torch.float32,
+               "path": "dense-client round" if back else "round 0",
+               "project_back": back, "route": p.route, "grid": list(p.grid),
+               "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
                "library": "no single call"}
         _timed(row, {
-            "ms": lambda c: ga.galore_precond_step(
+            "ms": lambda c, back=back: ga.galore_precond_step(
                 c["g"], c["basis"], c["m"], c["v"], 3, side=c["side"],
-                project_back=False),
-            "plain_ms": lambda c: ref.galore_precond_ref(
+                project_back=back),
+            "plain_ms": lambda c, back=back: ref.galore_precond_ref(
                 c["g"], c["basis"], c["m"], c["v"], c1=c1, c2=c2,
-                side=c["side"], project_back=False),
+                side=c["side"], project_back=back),
             "library_ms": None}, sets)
         row["device_gb_s"] = nbytes / row["device_ms"] / 1e6
         row["of_bound"] = b_ms / row["device_ms"]
@@ -2036,6 +2319,7 @@ def main(argv=None) -> int:
         "qwen1.5-0.5b", QWEN_PER_FORWARD, "serve",
         per_prefill=QWEN_PER_PREFILL)
     phase_parity(cfg, served, args.seed)
+    phase_sampling(cfg, served, args.seed, card)
     del served
     torch.cuda.empty_cache()
 
@@ -2051,11 +2335,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # training path
-    train_checked = phase_train_kernel_checks(gen)
+    train_checked = phase_train_kernel_checks(gen, args.seed)
     rounds, snaps, train_launches = phase_train(args.seed, card,
                                                 train_checked)
     phase_train_parity(args.seed, rounds, snaps)
     del snaps
+    torch.cuda.empty_cache()
+    svd_stack_check(args.seed, card)
+    eager_rounds = phase_train_methods(args.seed, card, train_checked)
     torch.cuda.empty_cache()
 
     # serving path, starcoder2-7b: 8 adapters, then one long prefill on the
@@ -2129,10 +2416,13 @@ def main(argv=None) -> int:
          "alone"),
         ("galore_precond_step", "src/repro_torch/kernels/csrc/galore_adamw.cu",
          "src/repro/kernels/galore_adamw.py:189", lambda r: 1,
-         "one client's round-0 local step: the three shape buckets "
-         "(4,24,1024,1024) + (2,24,1024,2816) + (1,24,2816,1024), g fp32 "
-         "as the clip leaves it on the path (bf16 rows in train_times), "
-         "r=8, project_back=False; no single library call computes it"),
+         "one client's local step in each mode the path launches: round "
+         "0's (PRECOND_UT, project_back=False) plus the dense-client "
+         "round's (PRECOND_U, project_back=True), each the three shape "
+         "buckets (4,24,1024,1024) + (2,24,1024,2816) + (1,24,2816,1024), "
+         "g fp32 as the clip leaves it on the path (bf16 rows in "
+         "train_times), r=8; by_mode splits launches and times by mode; "
+         "no single library call computes it"),
         ("galore_adamw_step", "src/repro_torch/kernels/csrc/galore_adamw.cu",
          "src/repro/kernels/galore_adamw.py:145", lambda r: 1,
          "not on the path (tests only in the reference): w (24,2816,1024) "
@@ -2162,8 +2452,23 @@ def main(argv=None) -> int:
             kernels[-1]["profiled_ms"] = agg["profiled_ms"]
         if name in ("lowrank_linear", "jacobi_eigh", "galore_precond_step"):
             kernels[-1]["launches_by_route"] = {
-                k: sum(r["routes"][name][k] for r in rounds)
+                k: sum(r["routes"][name][k] for r in rounds + eager_rounds)
                 for k in rounds[0]["routes"][name]}
+        if name in ("jacobi_eigh", "galore_precond_step"):
+            eager = sum(r["launches"][name] for r in eager_rounds)
+            kernels[-1]["launches"] += eager
+            kernels[-1]["launches_by_path"] = {
+                "train": train_launches[name], "train_methods": eager}
+        if name == "galore_precond_step":
+            # phase train launches PRECOND_UT only, the eager rounds
+            # PRECOND_U only (both checked against the shape logs)
+            kernels[-1]["by_mode"] = {
+                mode: {"launches": n, **_sum_rows(
+                    [r for r in train_rows
+                     if r.get("project_back") == back], name)}
+                for mode, back, n in (
+                    ("PRECOND_UT", False, train_launches[name]),
+                    ("PRECOND_U", True, eager))}
     admit = next(r for r in scan_rows if r["shape"] == "admission prefill")
     kernels.append({
         "name": "rwkv6_scan", "route": "cuda",

@@ -11,7 +11,11 @@ Slice 1: multi-tenant serving of the dense family (``launch.serve``) with
 the batched heterogeneous-adapter kernel. Slice 2: the FedGaLore round
 (``core.fed.FedEngine`` for the GaLore methods) with the lift-free
 low-rank apply, the fused GaLore step and the batched Jacobi eigensolver.
-Every kernel is CUDA C++ for sm_90a (``kernels/csrc``).
+Later slices serve rwkv6-1.6b and starcoder2-7b, put flash attention on
+every dense prefill, and run every method of the paper's Table 1 — the
+LoRA baselines and FedAvg beside the GaLore methods — in
+``core.fed.FedEngine``. Every kernel is CUDA C++ for sm_90a
+(``kernels/csrc``).
 """
 import torch
 

@@ -1,9 +1,11 @@
-"""Server aggregation 𝒜 for the GaLore methods (port of the FedAvg and
-factored-lift operators of ``repro/core/aggregation.py``).
+"""Server aggregation operators 𝒜 (port of ``repro/core/aggregation.py``,
+Definition 3.2 + Table 1): FedAvg, the LoRA baselines' factor and lift
+operators, and the GaLore methods' factored lifts.
 
 Operators take client-stacked trees or tensors (leading client axis K)
-and reduce them with normalized weights. The LoRA baselines' operators
-are ROADMAP Queue 1 item 8; the robust modes are item 10.
+and reduce them with normalized weights; stacked (nb, ·, ·) scan-block
+leaves carry their layer axis through, as in the reference. The robust
+modes are not ported yet (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from typing import Any
 import torch
 
 from . import projector as proj
+from .lora import LoraPair, is_lora_pair, svd_truncate
 from ..utils import tree
 
 PyTree = Any
@@ -35,8 +38,82 @@ def weighted_average(stacked: PyTree, weights) -> PyTree:
     return tree.tree_map(lambda x: _wavg(x, w), stacked)
 
 
+def _is_adapter(x) -> bool:
+    return x is None or is_lora_pair(x)
+
+
+def factor_average(stacked_adapters: PyTree, weights) -> PyTree:
+    """FedIT: average A and B factors separately.
+
+    ΔW̄ = (Σ p̃ᵢ Bᵢ)(Σ p̃ᵢ Aᵢ) — stays rank ≤ r but is a biased estimate of
+    the mean lift (the cross terms are dropped)."""
+    w = _norm_weights(weights)
+
+    def agg(ad):
+        if ad is None:
+            return None
+        return LoraPair(a=_wavg(ad.a, w), b=_wavg(ad.b, w))
+
+    return tree.tree_map(agg, stacked_adapters, is_leaf=_is_adapter)
+
+
+def _mean_lift(ad, w):
+    """Σ_k w_k B_k A_k in fp32 over the leading client axis, never
+    materializing the K lifts; the ellipsis carries stacked (nb, ·, ·)
+    leaves."""
+    return torch.einsum("k,k...mr,k...rn->...mn", w.to(ad.a.device),
+                        ad.b.float(), ad.a.float())
+
+
+def lift_average(stacked_adapters: PyTree, weights, scale: float = 1.0
+                 ) -> PyTree:
+    """FLoRA / FR-LoRA: lift each client adapter to ΔWᵢ = scale·BᵢAᵢ and
+    average in the ambient space (rank up to K·r). Returns a tree of fp32
+    dense deltas (None for non-adapted leaves)."""
+    w = _norm_weights(weights)
+
+    def agg(ad):
+        if ad is None:
+            return None
+        return scale * _mean_lift(ad, w)
+
+    return tree.tree_map(agg, stacked_adapters, is_leaf=_is_adapter)
+
+
+def lora_fair_refine(stacked_adapters: PyTree, weights, scale: float = 1.0,
+                     ridge: float = 1e-6) -> PyTree:
+    """LoRA-Fair: factor averaging followed by a server-side refinement of
+    B̄ toward the true mean lift, ``B̄' = argmin_B ||scale·B Ā −
+    ΔW̄_lift||²_F``, in closed form with a ridge term (batched over stacked
+    scan-block leading dims)."""
+    w = _norm_weights(weights)
+
+    def agg(ad):
+        if ad is None:
+            return None
+        a_bar = _wavg(ad.a, w).float()                     # (..., r, n)
+        mean_lift = _mean_lift(ad, w)                      # (..., m, n)
+        r = a_bar.shape[-2]
+        gram = a_bar @ a_bar.mT + ridge * torch.eye(
+            r, dtype=torch.float32, device=a_bar.device)
+        b_ref = torch.linalg.solve(gram, a_bar @ mean_lift.mT).mT \
+            / max(scale, 1e-12)
+        return LoraPair(a=a_bar.to(ad.a.dtype), b=b_ref.to(ad.b.dtype))
+
+    return tree.tree_map(agg, stacked_adapters, is_leaf=_is_adapter)
+
+
+def fr_lora_merge(base_params: PyTree, stacked_adapters: PyTree, weights,
+                  scale: float = 1.0) -> PyTree:
+    """Lift-average the client adapters and merge the full-rank delta into
+    the base weights (the residual beyond rank r is kept, in W0)."""
+    deltas = lift_average(stacked_adapters, weights, scale)
+    return tree.tree_map(lambda p, d: p if d is None else p + d.to(p.dtype),
+                         base_params, deltas, is_leaf=lambda x: x is None)
+
+
 def dense_delta_average(stacked_deltas: PyTree, weights) -> PyTree:
-    """FedAvg on dense target-module deltas."""
+    """FedAvg on dense target-module deltas (FedAvg-Full / FedGaLore)."""
     return weighted_average(stacked_deltas, weights)
 
 
@@ -79,3 +156,15 @@ def robust_factored_lift(delta_stack, basis_stack, side: str, weights,
         return factored_lift_average_hetero(delta_stack, basis_stack, side,
                                             weights)
     return factored_lift_average(delta_stack, basis_stack[0], side, weights)
+
+
+def truncate_to_rank(deltas: PyTree, rank: int) -> PyTree:
+    """Post-hoc SVD truncation of dense deltas back to rank r (diagnostic /
+    the 'Averaging + SVD' baseline of Appendix F)."""
+    def trunc(d):
+        if d is None:
+            return None
+        pair = svd_truncate(d.float(), rank)
+        return (pair.b @ pair.a).to(d.dtype)
+
+    return tree.tree_map(trunc, deltas, is_leaf=lambda x: x is None)

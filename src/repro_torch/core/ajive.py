@@ -1,8 +1,24 @@
-"""Factored AJIVE second-moment sync (port of the factored section of
-``repro/core/ajive.py``, lines 194-540).
+"""AJIVE second-moment sync (port of ``repro/core/ajive.py``): the dense
+Algorithm 5 (Appendix E) and its factored fast path.
+
+The dense :func:`ajive` runs on lifted (k_views, n, m) views:
+
+  Phase 1  per-view economy SVD at an initial signal rank; singular-value
+           threshold at the r/r+1 midpoint;
+  Phase 2  joint SVD of the concatenated scores; joint rank fixed (the
+           paper's k = r) or estimated from the Wedin and random-direction
+           bounds, drawn through the port's threefry ``split``/``normal``;
+  Phase 3  per-view ``X = J + I + E``.
+
+:func:`ajive_sync` is the eager oracle round's 𝒮 on dense lifted views;
+it needs only the joint components, so it stops after Phase 2 and applies
+the joint projector (the individual SVDs of Phase 3 do not enter its
+result). Its SVDs go through ``core.projector``'s (LAPACK ``gesdd``
+through SciPy on the CPU, as JAX's).
 
 Every federated input has rank ≤ r (ṽ is (·, r) and the basis is
-orthonormal), so AJIVE's three phases run on the projected moments:
+orthonormal), so the factored fast path runs AJIVE's three phases on the
+projected moments:
 
   Phase 1  per-view orthonormal scores from the r×r Gram ``ṽᵀṽ`` — a
            batched small eigensolve (``kernels.ops.batched_small_eigh``:
@@ -12,22 +28,163 @@ orthonormal), so AJIVE's three phases run on the projected moments:
            sketched Rayleigh–Ritz);
   Phase 3  the per-view joint component ``U Uᵀ ṽ`` as two skinny GEMMs.
 
-Layout: the public functions take the client axis first, as the
+Layout: the factored functions take the client axis first, as the
 reference does — ``v_stack (C, *batch, m, r)`` right or ``(C, *batch, r,
 n)`` left — and treat any further leading dims as a batch where the
 reference vmaps (stacked layers, stacked buckets), so a whole bucket's
 Phase-1 Grams go through one eigensolve. Internally the client axis sits
-at -3. The dense ``ajive`` oracle and the robust reductions are not
-ported (ROADMAP Queue 1 item 10 carries the robust modes).
+at -3. The robust reductions are not ported (ROADMAP Queue 1 item 10
+carries the robust modes).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from . import projector as proj
 from ..kernels import ops as kernel_ops
 from ..utils import prng
+
+
+class AjiveResult(NamedTuple):
+    joint: torch.Tensor        # (k_views, n, m) per-view joint components
+    individual: torch.Tensor   # (k_views, n, m) per-view individual I^(i)
+    noise: torch.Tensor        # (k_views, n, m) E^(i)
+    joint_basis: torch.Tensor  # (n, r_joint) shared column basis U_joint
+    joint_mean: torch.Tensor   # (n, m) mean of the joint components
+    sv_joint: torch.Tensor     # singular values of the stacked scores
+
+
+def _center(x):
+    return x - torch.mean(x, dim=0, keepdim=True)
+
+
+def _rank_truncate(x, rank: int):
+    u, s, vt = proj._svd(x)
+    return u[:, :rank], s[:rank], vt[:rank], s
+
+
+def wedin_bound(x, u, s, vt, key, n_samples: int = 20) -> torch.Tensor:
+    """Resampled Wedin-style perturbation bound for one view (Phase 2 aid):
+    the 95th percentile of ``max(|E dv|, |Eᵀ du|)`` over random unit
+    directions, over the smallest kept singular value, capped at 1."""
+    resid = x - (u * s[None, :]) @ vt
+    n, m = x.shape
+    kk = prng.split(key, n_samples)                  # (S, 2)
+    kv_ku = prng.split(kk)                           # (S, 2, 2)
+    dv = prng.normal(kv_ku[:, 0], (m,))
+    dv = dv / (torch.linalg.vector_norm(dv, dim=-1, keepdim=True) + 1e-12)
+    du = prng.normal(kv_ku[:, 1], (n,))
+    du = du / (torch.linalg.vector_norm(du, dim=-1, keepdim=True) + 1e-12)
+    vals = torch.maximum(torch.linalg.vector_norm(dv @ resid.T, dim=-1),
+                         torch.linalg.vector_norm(du @ resid, dim=-1))
+    est = torch.quantile(vals, 0.95)       # jnp.percentile's interpolation
+    return torch.clamp(est / (s[-1] + 1e-12), max=1.0)
+
+
+def random_direction_bound(shapes: Sequence[tuple], ranks: Sequence[int],
+                           key, n_samples: int = 20) -> torch.Tensor:
+    """Null distribution of the top squared singular value of stacked
+    random orthonormal score matrices (Phase 2's random bound): its 95th
+    percentile over ``n_samples`` draws."""
+    keys = prng.split(key, n_samples)                # (S, 2)
+    subkeys = prng.split(keys, len(shapes))          # (S, V, 2)
+    mats = []
+    for i, ((n, _), r) in enumerate(zip(shapes, ranks)):
+        q, _ = torch.linalg.qr(prng.normal(subkeys[:, i], (n, r)))
+        mats.append(q)
+    s = torch.linalg.svdvals(torch.cat(mats, dim=-1))
+    return torch.quantile(s[:, 0] ** 2, 0.95)
+
+
+def _signal_scores(views, signal_ranks):
+    """Phase 1: each view's top singular triplets at its signal rank and
+    the r/r+1 midpoint threshold."""
+    svds, thresholds = [], []
+    u_all, s_all, vt_all = proj._svd(views)           # every view at once
+    for i, r in enumerate(signal_ranks):
+        u, s, vt = u_all[i][:, :r], s_all[i][:r], vt_all[i][:r]
+        s_full = s_all[i]
+        nxt = s_full[r] if r < s_full.shape[0] else torch.zeros(
+            (), dtype=s_full.dtype, device=s_full.device)
+        thresholds.append(0.5 * (s_full[r - 1] + nxt))
+        svds.append((u, s, vt))
+    return svds, thresholds
+
+
+def _joint_scores(views, svds, signal_ranks, joint_rank, key):
+    """Phase 2: (u_joint, singular values of the stacked scores, rank)."""
+    k_views, n, m = views.shape
+    stacked = torch.cat([u for u, _, _ in svds], dim=1)     # (n, sum r_i)
+    u_joint_full, d_joint, _ = proj._svd(stacked)
+    if joint_rank is not None:
+        return (u_joint_full[:, :joint_rank], d_joint,
+                torch.tensor(joint_rank))
+    if key is None:
+        key = prng.PRNGKey(0, device=views.device)
+    kw, kr = prng.split(key)
+    wkeys = prng.split(kw, k_views)
+    wedin_cut = sum(1.0 - torch.clamp(
+        wedin_bound(views[i], *svds[i], wkeys[i]), max=1.0) ** 2
+        for i in range(k_views))
+    wedin_cut = k_views - wedin_cut + 1e-6            # cutoff on squared SVs
+    rand_cut = random_direction_bound([(n, m)] * k_views, signal_ranks, kr)
+    cutoff = torch.maximum(wedin_cut, rand_cut)
+    rank_mask = d_joint ** 2 > cutoff
+    max_joint = min(min(signal_ranks), u_joint_full.shape[1])
+    mask = rank_mask[:max_joint].to(views.dtype)
+    return (u_joint_full[:, :max_joint] * mask[None, :], d_joint,
+            torch.sum(rank_mask[:max_joint]))
+
+
+def _signal_ranks(signal_ranks, k_views):
+    if isinstance(signal_ranks, int):
+        return [signal_ranks] * k_views
+    return list(signal_ranks)
+
+
+def ajive(views, signal_ranks, joint_rank: Optional[int] = None,
+          individual_ranks=None, center: bool = True, key=None,
+          return_rank_diag: bool = False):
+    """Run AJIVE on ``views`` of shape (k_views, n, m).
+
+    ``signal_ranks``: int or per-view list — Phase 1 initial signal rank.
+    ``joint_rank``: fixed joint rank (paper: k = r). If None, estimated
+    from the Wedin/random bounds with ``key`` (default ``PRNGKey(0)``); the
+    estimate masks a max-rank basis, as the reference's static shapes do.
+    """
+    k_views = views.shape[0]
+    signal_ranks = _signal_ranks(signal_ranks, k_views)
+    if center:
+        views = torch.stack([_center(x) for x in views])
+    svds, thresholds = _signal_scores(views, signal_ranks)
+    u_joint, d_joint, est_rank = _joint_scores(views, svds, signal_ranks,
+                                               joint_rank, key)
+
+    # Phase 3: per-view decomposition
+    proj_joint = u_joint @ u_joint.T                 # (n, n) joint projector
+    joints, individuals, noises = [], [], []
+    for i in range(k_views):
+        x = views[i]
+        j = proj_joint @ x
+        r_ind = (individual_ranks[i] if individual_ranks is not None
+                 else signal_ranks[i])
+        ui, si, vti, _ = _rank_truncate(x - j, r_ind)
+        keep = (si > thresholds[i]).to(x.dtype)    # above the view threshold
+        ind = (ui * (si * keep)[None, :]) @ vti
+        joints.append(j)
+        individuals.append(ind)
+        noises.append(x - j - ind)
+
+    joint = torch.stack(joints)
+    result = AjiveResult(joint=joint, individual=torch.stack(individuals),
+                         noise=torch.stack(noises), joint_basis=u_joint,
+                         joint_mean=torch.mean(joint, dim=0),
+                         sv_joint=d_joint)
+    if return_rank_diag:
+        return result, est_rank
+    return result
 
 
 def normalize_weights(weights, k: int, device=None) -> torch.Tensor:
@@ -36,6 +193,26 @@ def normalize_weights(weights, k: int, device=None) -> torch.Tensor:
         return torch.full((k,), 1.0 / k, dtype=torch.float32, device=device)
     w = torch.as_tensor(weights, dtype=torch.float32, device=device)
     return w / torch.sum(w)
+
+
+def ajive_sync(views, rank: int, weights=None) -> torch.Tensor:
+    """Server-side second-moment sync on dense lifted views (Algorithm 1,
+    line 12): ``views`` (k_views, *batch, n, m) = ṽ^{i} R_kᵀ, each batch
+    entry (a stacked scan block) synced on its own, as under the
+    reference's vmap. Returns the weighted mean of the per-view joint
+    components (*batch, n, m), joint rank ``rank`` — :func:`ajive`'s
+    ``joint`` with ``center=False``, which needs Phases 1 and 2 and the
+    joint projector only. Phase 1 takes every view of every entry as one
+    stack of SVDs."""
+    u, _, _ = proj._svd(views)                               # Phase 1
+    stacked = torch.cat(list(u[..., :rank]), dim=-1)  # (*batch, n, k·rank)
+    u_joint = proj._svd(stacked)[0][..., :rank]              # Phase 2
+    joint = torch.einsum("...nj,k...jm->k...nm", u_joint @ u_joint.mT,
+                         views)
+    if weights is None:
+        return torch.mean(joint, dim=0)
+    w = torch.as_tensor(weights, dtype=torch.float32, device=views.device)
+    return torch.einsum("k,k...->...", w / torch.sum(w), joint)
 
 
 def _no_robust(robust: str) -> None:

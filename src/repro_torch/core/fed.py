@@ -1,46 +1,66 @@
-"""Federated fine-tuning engine for the GaLore methods — 𝒯 / 𝒜 / 𝒮 (port of
-``repro/core/fed.py``, paper §3, Alg. 1).
+"""Federated fine-tuning engine — 𝒯 / 𝒜 / 𝒮 (port of
+``repro/core/fed.py``, paper §3, Alg. 1). Each method is a
+(trainable-kind, optimizer, aggregation, state-sync) 4-tuple per Table 1:
 
-  ==================  ===========  ==============  =======
-  method              optimizer 𝒯  aggregation 𝒜   sync 𝒮
-  ==================  ===========  ==============  =======
-  fedgalore_minus     GaLoreAdamW  dense avg       none
-  fedgalore           GaLoreAdamW  dense avg       AJIVE(ṽ)
-  fedgalore_avg       GaLoreAdamW  dense avg       avg(ṽ)
-  fedgalore_avg_svd   GaLoreAdamW  dense avg       avg_svd(ṽ)
-  ==================  ===========  ==============  =======
+  =================  =========  ===========  ==============  =========
+  method             trainable  optimizer 𝒯  aggregation 𝒜   sync 𝒮
+  =================  =========  ===========  ==============  =========
+  fedavg_full        dense      AdamW        dense avg       none
+  fedit              LoRA(A,B)  Adam         factor avg      none
+  ffa_lora           LoRA(B)    SGD          factor avg      none
+  lora_fair          LoRA(A,B)  SGD          factor avg+ref  none
+  flora              LoRA(A,B)  AdamW        lift ΔW, merge  none
+  fr_lora            LoRA(A,B)  AdamW        lift ΔW, merge
+                                             + rank-r refac  none
+  fedgalore_minus    dense      GaLoreAdamW  dense avg       none
+  fedgalore          dense      GaLoreAdamW  dense avg       AJIVE(ṽ)
+  fedgalore_avg      dense      GaLoreAdamW  dense avg       avg(ṽ)
+  fedgalore_avg_svd  dense      GaLoreAdamW  dense avg       avg_svd(ṽ)
+  =================  =========  ===========  ==============  =========
 
-One round (:meth:`FedEngine.run_round`), as the reference's fused round
-computes it:
+A round (:meth:`FedEngine.run_round`) takes one of three forms, chosen as
+the reference chooses them:
 
-1. InitState (Eq. 5): fresh moments, the synced ṽ of the last round
-   installed, the seeded projector refresh for round k (seed ``s_k =
-   seed + k``, count ``k·T``) — identical for every client.
-2. T local GaLore steps per client, clients one after another. A client
-   holds only rank-r factored state: the accumulator ``R_i`` (shaped like
-   the projected moments), its moments and basis, and the scalar
-   ``base_scale = (1-ηλ)^t`` — never a dense weight copy.
-   - Round 0 with adaptive refreshes reads ``base_scale·W + lift(R_i)``
-     transiently (its in-step refresh at count 0 is an RSVD of each
-     client's own dense gradient) and runs the fused preconditioner on the
-     stacked buckets (``kernels.ops.galore_precond_step``).
-   - Every later round is lift-free: target leaves enter the loss as
-     ``models.layers.LowRankDelta`` nodes (``kernels.ops.lowrank_linear``
-     forward, projected-cotangent backward), and the step consumes the
-     projected gradients with the projection skipped.
-3. 𝒜: ``(Σ wᵢ sᵢ)·W + Σ wᵢ lift(Rᵢ, Bᵢ)`` per target leaf — per-client
-   bases in round 0, one shared basis after.
-4. 𝒮 in projected coordinates, one batched program per shape bucket
-   (``core.state_sync``; AJIVE's Phase-1 eigensolves through
-   ``kernels.ops.batched_small_eigh``).
+* **Factored clients** (GaLore methods whose every trainable leaf is a
+  GaLore target block, ``factored_clients=True``; the default for them):
+  1. InitState (Eq. 5): fresh moments, the synced ṽ of the last round
+     installed, the seeded projector refresh for round k (seed ``s_k =
+     seed + k``, count ``k·T``) — identical for every client.
+  2. T local GaLore steps per client, clients one after another. A client
+     holds only rank-r factored state: the accumulator ``R_i`` (shaped
+     like the projected moments), its moments and basis, and the scalar
+     ``base_scale = (1-ηλ)^t`` — never a dense weight copy. Round 0 with
+     adaptive refreshes (and every round under ``lift_free=False``) reads
+     ``base_scale·W + lift(R_i)`` transiently and runs the fused
+     preconditioner on the stacked buckets
+     (``kernels.ops.galore_precond_step``, ũ out); every other round is
+     lift-free: target leaves enter the loss as
+     ``models.layers.LowRankDelta`` nodes (``kernels.ops.lowrank_linear``).
+  3. 𝒜: ``(Σ wᵢ sᵢ)·W + Σ wᵢ lift(Rᵢ, Bᵢ)`` per target leaf.
+  4. 𝒮 in projected coordinates, one batched program per shape bucket
+     (``core.state_sync``; AJIVE's Phase-1 eigensolves through
+     ``kernels.ops.batched_small_eigh``).
+* **Dense clients** (the LoRA and dense methods, and GaLore under
+  ``factored_clients=False``): each client trains its own copy of the
+  trainables — dense target leaves, or the LoRA pairs merged densely
+  into the base (``merge_lora``) — for T steps of ``tx.update`` +
+  ``apply_updates`` (for GaLore the fused preconditioner with the update
+  projected back, ``galore_precond_step`` with ``project_back=True``);
+  𝒜 reduces the stacked trainables (:meth:`FedEngine._aggregate_pure`;
+  FLoRA and FR-LoRA also write the base); 𝒮 is step 4's.
+* **The eager oracle** (``fused_round=False`` or ``factored_sync=False``):
+  the dense-client round with :meth:`FedEngine._sync_states_eager`, the
+  factored shared-basis 𝒮 where ``factored_sync`` holds and bases are
+  shared, else the dense per-client lift (``state_sync.sync_lifted_views``,
+  dense ``ajive``) re-projected onto client 0's basis.
 
 The reference's ``jit``/``vmap``/``scan``/donation become eager loops, so
-its execution knobs (``fused_round``, ``client_chunk``, ``pipeline_sync``,
-donation) have no counterpart; the round counter and step counts are host
-ints, and the round-0 choice is Python control flow. Not ported: the LoRA
-and dense methods and the eager dense-𝒮 oracle round (ROADMAP Queue 1
-item 8); participation masks, attacks, quarantine and robust aggregation
-(item 10).
+its execution knobs that only reschedule the same arithmetic
+(``client_chunk``, ``pipeline_sync``, ``bucketed_sync``, donation, the
+scan over rounds) have no counterpart; the round counter and step counts
+are host ints, and the round-0 choice is Python control flow. Not ported:
+participation masks, attacks, quarantine and robust aggregation (ROADMAP
+Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -52,9 +72,11 @@ import torch
 
 from . import aggregation as agg
 from . import galore as gal
+from . import lora as lora_lib
 from . import projector as proj
 from . import state_sync as sync_lib
-from ..utils import tree
+from .. import optim as optim_lib
+from ..utils import prng, tree
 
 PyTree = Any
 
@@ -62,13 +84,22 @@ PyTree = Any
 @dataclasses.dataclass(frozen=True)
 class FedMethodSpec:
     name: str
-    trainable: str          # 'galore'
-    optimizer: str          # 'galore_adamw'
-    aggregation: str        # 'dense_avg'
+    trainable: str          # 'dense' | 'lora' | 'lora_b' | 'galore'
+    optimizer: str          # 'sgd' | 'sgdm' | 'adam' | 'adamw' | 'galore_adamw'
+    aggregation: str        # 'dense_avg'|'factor_avg'|'fair'|'lift_merge'|'lift_refac'
     state_sync: str         # 'none' | 'avg' | 'avg_svd' | 'ajive'
 
 
 METHODS: Dict[str, FedMethodSpec] = {
+    "fedavg_full": FedMethodSpec("fedavg_full", "dense", "adamw",
+                                 "dense_avg", "none"),
+    "fedit": FedMethodSpec("fedit", "lora", "adam", "factor_avg", "none"),
+    "ffa_lora": FedMethodSpec("ffa_lora", "lora_b", "sgd", "factor_avg",
+                              "none"),
+    "lora_fair": FedMethodSpec("lora_fair", "lora", "sgd", "fair", "none"),
+    "flora": FedMethodSpec("flora", "lora", "adamw", "lift_merge", "none"),
+    "fr_lora": FedMethodSpec("fr_lora", "lora", "adamw", "lift_refac",
+                             "none"),
     "fedgalore": FedMethodSpec("fedgalore", "galore", "galore_adamw",
                                "dense_avg", "ajive"),
     "fedgalore_minus": FedMethodSpec("fedgalore_minus", "galore",
@@ -79,18 +110,22 @@ METHODS: Dict[str, FedMethodSpec] = {
                                        "galore_adamw", "dense_avg",
                                        "avg_svd"),
 }
-# The reference's LoRA and dense methods (ROADMAP Queue 1 item 8).
-UNPORTED_METHODS = ("fedavg_full", "fedit", "ffa_lora", "lora_fair", "flora",
-                    "fr_lora")
 
 
 @dataclasses.dataclass(frozen=True)
 class FedConfig:
-    """The reference's ``FedConfig`` fields that mean something for the
-    GaLore methods here; ``participation``, ``robust_agg`` and
-    ``quarantine`` exist to refuse what is not ported."""
+    """The reference's ``FedConfig`` fields that mean something in eager
+    rounds. The round switches keep the reference's meaning:
+    ``fused_round`` and ``factored_sync`` both True select the factored
+    𝒮 of the fused round, either False the eager oracle round;
+    ``factored_clients`` lets the GaLore methods keep rank-r client state;
+    ``lift_free`` (with factored clients) reads target leaves lift-free
+    after round 0, False keeps the transient-lift read in every round.
+    ``participation``, ``robust_agg`` and ``quarantine`` exist to refuse
+    what is not ported."""
     method: str = "fedgalore"
     rank: int = 8
+    lora_scale: float = 2.0            # alpha / r
     lr: float = 1e-3
     weight_decay: float = 0.0
     clip_norm: Optional[float] = 1.0   # Assumption 3.8 (bounded G)
@@ -100,19 +135,19 @@ class FedConfig:
     b2: float = 0.999
     eps: float = 1e-8
     seed: int = 0
+    factored_sync: bool = True
+    fused_round: bool = True
+    factored_clients: bool = True
+    lift_free: bool = True
     participation: Optional[Any] = None
     robust_agg: str = "none"
     quarantine: bool = False
 
 
-_ITEM8 = "ROADMAP Queue 1 item 8: LoRA baselines and the dense oracle round"
 _ITEM10 = "ROADMAP Queue 1 item 10: population and robustness"
 
 
 def _check_config(cfg: FedConfig) -> None:
-    if cfg.method in UNPORTED_METHODS:
-        raise NotImplementedError(f"method {cfg.method!r} is not ported yet "
-                                  f"({_ITEM8})")
     if cfg.method not in METHODS:
         raise ValueError(f"unknown method {cfg.method!r}")
     if cfg.participation is not None:
@@ -148,17 +183,36 @@ def merge_dense(frozen: PyTree, trainable: PyTree) -> PyTree:
                          trainable, is_leaf=lambda x: x is None)
 
 
-def _to_device(batch: dict, device) -> dict:
-    return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
-                               else v, device=device)
-            for k, v in batch.items()}
+def merge_lora(base: PyTree, adapters: PyTree, scale: float,
+               freeze_a: bool = False) -> PyTree:
+    """``W0 + (scale·B A)`` cast to W0's dtype per adapted leaf;
+    ``freeze_a`` stops A's gradient (FFA-LoRA)."""
+    if freeze_a:
+        adapters = tree.tree_map(
+            lambda ad: ad if ad is None else ad._replace(a=ad.a.detach()),
+            adapters,
+            is_leaf=lambda x: x is None or lora_lib.is_lora_pair(x))
+    return lora_lib.apply_lora(base, adapters, scale)
+
+
+def _to_device(batch: PyTree, device) -> PyTree:
+    """Any tree of arrays (a dict of fields, a tuple (x, y), ...) as
+    tensors on ``device``."""
+    return tree.tree_map(
+        lambda v: torch.as_tensor(v if torch.is_tensor(v) else np.array(v),
+                                  device=device), batch)
+
+
+def _index(batches: PyTree, i: int) -> PyTree:
+    return tree.tree_map(lambda v: v[i], batches)
 
 
 # -------------------------------------------------------------- the engine --
 
 class FedEngine:
-    """Federated simulation of the GaLore methods. ``loss_fn(params, batch)
-    -> scalar tensor``; ``params`` sit on the device the rounds run on."""
+    """Federated simulation of every method of :data:`METHODS`.
+    ``loss_fn(params, batch) -> scalar tensor``; ``params`` sit on the
+    device the rounds run on."""
 
     def __init__(self, cfg: FedConfig, loss_fn: Callable, params: PyTree,
                  target_fn: Callable = None, eval_fn: Callable = None):
@@ -168,41 +222,77 @@ class FedEngine:
         self.loss_fn = loss_fn
         self.eval_fn = eval_fn
         self.target_fn = target_fn or (lambda p, x: True)
-        self.global_trainable, self.frozen = split_trainable(params,
-                                                             self.target_fn)
-        leaves = tree.tree_leaves(self.global_trainable)
-        if not leaves:
+        leaves = tree.tree_leaves(params)
+        self.device = leaves[0].device if leaves else torch.device("cpu")
+        if self.spec.trainable in ("dense", "galore"):
+            self.global_trainable, self.frozen = split_trainable(
+                params, self.target_fn)
+        else:
+            self.global_trainable = lora_lib.tree_lora_init(
+                prng.PRNGKey(cfg.seed, device=self.device), params,
+                self.target_fn, cfg.rank)
+            self.frozen = params   # LoRA: base stays whole, delta additive
+        if not tree.tree_leaves(self.global_trainable):
             raise ValueError(
                 f"target_fn selected no trainable leaves for method "
                 f"'{cfg.method}' — nothing to train or aggregate")
-        self.device = leaves[0].device
         self.galore_cfg = gal.GaloreConfig(
             rank=cfg.rank, refresh_every=10 ** 9,   # engine refreshes itself
             adaptive_steps=cfg.adaptive_refreshes, b1=cfg.b1, b2=cfg.b2,
             eps=cfg.eps, refresh_mode="auto")
-        self.tx = gal.galore_adamw(self.galore_cfg, cfg.lr, cfg.weight_decay,
-                                   seed=cfg.seed, clip_norm=cfg.clip_norm)
-        # tx.init depends only on the trainables' shapes and the seed, so
-        # the fresh state every InitState starts from is built once.
+        self.tx = self._make_tx()
+        # tx.init depends only on the trainables' shapes and the seed, and
+        # every update is out of place, so the fresh state every InitState
+        # starts from is built once.
         self._fresh_opt = self.tx.init(self.global_trainable)
-        if not gal.all_blocks_projected(gal.galore_state_of(self._fresh_opt)):
-            raise NotImplementedError(
-                "a trainable leaf that is no GaLore target block needs dense "
-                f"per-client state ({_ITEM8})")
+        # Factored-delta clients: GaLore methods whose trainable is
+        # entirely target blocks carry rank-r accumulators instead of
+        # dense per-client weight copies.
+        self._factored = bool(
+            cfg.factored_clients and self.spec.optimizer == "galore_adamw"
+            and gal.all_blocks_projected(gal.galore_state_of(
+                self._fresh_opt)))
+        self._lift_free = bool(cfg.lift_free) and self._factored
         self.round_idx = 0
         self.synced_v = None        # projected ṽ init from 𝒮
         self._client_state = None   # (C, ·) factored accumulators, last round
         self._client_opt = None     # (C, ·) optimizer states, last round
 
+    # ----------------------------------------------------------- optimizer --
+    def _make_tx(self):
+        c = self.cfg
+        o = self.spec.optimizer
+        if o == "sgd":
+            return optim_lib.sgd(c.lr, clip_norm=c.clip_norm)
+        if o == "sgdm":
+            return optim_lib.sgd(c.lr, momentum=0.9, clip_norm=c.clip_norm)
+        if o == "adam":
+            return optim_lib.adam(c.lr, c.b1, c.b2, c.eps,
+                                  clip_norm=c.clip_norm)
+        if o == "adamw":
+            return optim_lib.adamw(c.lr, c.b1, c.b2, c.eps, c.weight_decay,
+                                   clip_norm=c.clip_norm)
+        if o == "galore_adamw":
+            return gal.galore_adamw(self.galore_cfg, c.lr, c.weight_decay,
+                                    seed=c.seed, clip_norm=c.clip_norm)
+        raise ValueError(o)
+
     # -------------------------------------------------------------- 𝒯 -------
     def _trainable_loss(self, trainable, batch):
-        return self.loss_fn(merge_dense(self.frozen, trainable), batch)
+        if self.spec.trainable in ("dense", "galore"):
+            params = merge_dense(self.frozen, trainable)
+        else:
+            params = merge_lora(self.frozen, trainable, self.cfg.lora_scale,
+                                freeze_a=(self.spec.trainable == "lora_b"))
+        return self.loss_fn(params, batch)
 
     def _init_state0(self, round_idx: int, synced_v):
         """The round-start InitState (Eq. 5), identical for every client:
-        fresh moments, the synced ṽ installed, the seeded refresh for
-        round ``round_idx``."""
+        fresh moments and, for GaLore, the synced ṽ installed and the
+        seeded refresh for round ``round_idx``."""
         st = self._fresh_opt
+        if self.spec.optimizer != "galore_adamw":
+            return st
         g = gal.galore_state_of(st)
         g = gal.with_seed(g, self.cfg.seed + round_idx)          # s_k
         g = g._replace(count=round_idx * self.cfg.local_steps)
@@ -210,6 +300,28 @@ class FedEngine:
             g = gal.with_projected_v(g, synced_v)
         g = gal.manual_refresh(self.galore_cfg, g, round_idx)
         return gal.replace_galore_state(st, g)
+
+    def _local_train_one(self, trainable, opt_state, batches):
+        """T local steps of one client on its own dense trainables
+        (Definition 3.1): autograd of the merged loss, ``tx.update``,
+        ``apply_updates``. A leaf the loss does not reach (FFA-LoRA's
+        frozen A) gets a zero gradient, as under ``stop_gradient``.
+        Returns (trainable, opt_state, losses (T,))."""
+        losses = []
+        for t in range(self.cfg.local_steps):
+            leaves, tdef = tree.tree_flatten(trainable)
+            leaves = [x.detach().requires_grad_(True) for x in leaves]
+            loss = self._trainable_loss(tdef.unflatten(leaves),
+                                        _index(batches, t))
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = tdef.unflatten([torch.zeros_like(x) if g is None else g
+                                    for g, x in zip(grads, leaves)])
+            with torch.no_grad():
+                updates, opt_state = self.tx.update(grads, opt_state,
+                                                    trainable)
+                trainable = optim_lib.apply_updates(trainable, updates)
+            losses.append(loss.detach().float())
+        return trainable, opt_state, torch.stack(losses)
 
     def _round0_adaptive(self) -> bool:
         """Whether round 0's in-step refresh is data-driven (RSVD of each
@@ -234,7 +346,7 @@ class FedEngine:
         scale = torch.ones((), dtype=torch.float32, device=self.device)
         losses = []
         for t in range(self.cfg.local_steps):
-            batch = {k: v[t] for k, v in batches.items()}
+            batch = _index(batches, t)
             if transient:
                 with torch.no_grad():
                     tr = gal.lift_client_trainable(
@@ -258,23 +370,35 @@ class FedEngine:
     # ------------------------------------------------------------ a round ---
     def run_round(self, client_batches: PyTree, weights=None, mask=None,
                   attack=None):
-        """client_batches: dict of arrays with leading (K clients, T steps,
-        ...) axes. Returns ``{"local_loss": (K, T) tensor,
+        """client_batches: a tree of arrays with leading (K clients, T
+        steps, ...) axes. Returns ``{"local_loss": (K, T) tensor,
         "mean_final_loss": float}`` and advances the engine's global
-        state."""
+        state. ``fused_round=False`` or ``factored_sync=False`` runs the
+        eager oracle round."""
         if mask is not None or attack is not None:
             raise NotImplementedError("participation masks and attack "
                                       f"injection are not ported yet "
                                       f"({_ITEM10})")
         batches = _to_device(client_batches, self.device)
-        k_clients = next(iter(batches.values())).shape[0]
+        k_clients = tree.tree_leaves(batches)[0].shape[0]
         w = sync_lib.normalize_weights(weights, k_clients,
                                        device=self.device)
+        eager = not (self.cfg.fused_round and self.cfg.factored_sync)
+        if self._factored and not eager:
+            losses = self._run_round_factored(batches, w, k_clients)
+        else:
+            losses = self._run_round_dense(batches, w, k_clients, eager)
+        self.round_idx += 1
+        return {"local_loss": losses,                      # (K, T)
+                "mean_final_loss": float(losses[:, -1].mean())}
+
+    def _run_round_factored(self, batches, w, k_clients):
         round_idx = self.round_idx
         st0 = self._init_state0(round_idx, self.synced_v)
-        transient = round_idx == 0 and self._round0_adaptive()
-        outs = [self._local_train(st0, {k: v[c] for k, v in batches.items()},
-                                  transient) for c in range(k_clients)]
+        transient = not self._lift_free or (
+            round_idx == 0 and self._round0_adaptive())
+        outs = [self._local_train(st0, _index(batches, c), transient)
+                for c in range(k_clients)]
         out_d = tree.tree_map(lambda *xs: torch.stack(xs),
                               *[o[0] for o in outs])
         out_opt = gal.stack_opt_states([o[1] for o in outs])
@@ -285,9 +409,37 @@ class FedEngine:
         if self._method_syncs():
             self.synced_v = self._sync_states(out_opt, w, round_idx)
         self._client_state, self._client_opt = out_d, out_opt
-        self.round_idx += 1
-        return {"local_loss": losses,                      # (K, T)
-                "mean_final_loss": float(losses[:, -1].mean())}
+        return losses
+
+    def _run_round_dense(self, batches, w, k_clients, eager: bool):
+        """Dense clients one after another from the round's InitState,
+        then 𝒜 on the stacked trainables and 𝒮 (eager or factored).
+        Only 𝒮 reads the optimizer states, so they are stacked only for
+        a method that syncs."""
+        round_idx = self.round_idx
+        st0 = self._init_state0(round_idx, self.synced_v)
+        syncs = self._method_syncs()
+        trainables, opts, losses = [], [], []
+        for c in range(k_clients):
+            tr, st, loss = self._local_train_one(self.global_trainable, st0,
+                                                 _index(batches, c))
+            trainables.append(tr)
+            losses.append(loss)
+            opts.append(st if syncs else None)
+            del tr, st
+        stacked = tree.tree_map(lambda *xs: torch.stack(xs), *trainables)
+        del trainables
+        self.global_trainable, self.frozen = self._aggregate_pure(
+            stacked, w, self.frozen, round_idx)
+        del stacked
+        self._client_state = None
+        self._client_opt = gal.stack_opt_states(opts) if syncs else None
+        if syncs:
+            self.synced_v = (
+                self._sync_states_eager(self._client_opt, w, round_idx)
+                if eager else
+                self._sync_states(self._client_opt, w, round_idx))
+        return torch.stack(losses)
 
     def run_rounds(self, round_batches: PyTree, weights=None, masks=None):
         """K rounds in order: round_batches has leading (K rounds, C
@@ -295,10 +447,9 @@ class FedEngine:
         if masks is not None:
             raise NotImplementedError(f"participation masks are not ported "
                                       f"yet ({_ITEM10})")
-        k_rounds = next(iter(round_batches.values())).shape[0]
+        k_rounds = tree.tree_leaves(round_batches)[0].shape[0]
         losses = torch.stack([
-            self.run_round({k: v[r] for k, v in round_batches.items()},
-                           weights)["local_loss"]
+            self.run_round(_index(round_batches, r), weights)["local_loss"]
             for r in range(int(k_rounds))])
         return {"local_loss": losses,
                 "mean_final_loss": float(losses[-1, :, -1].mean())}
@@ -328,39 +479,129 @@ class FedEngine:
 
         return tree.tree_map(one, global_trainable, out_deltas, bases)
 
+    @torch.no_grad()
+    def _aggregate_pure(self, stacked, w, frozen, round_idx):
+        """𝒜 on the client-stacked trainables: returns
+        (new_global_trainable, new_frozen)."""
+        s = self.spec.aggregation
+        c = self.cfg
+        if s == "dense_avg":
+            return agg.dense_delta_average(stacked, w), frozen
+        if s == "factor_avg":
+            return agg.factor_average(stacked, w), frozen
+        if s == "fair":
+            return agg.lora_fair_refine(stacked, w, c.lora_scale), frozen
+        if s not in ("lift_merge", "lift_refac"):
+            raise ValueError(s)
+        deltas = agg.lift_average(stacked, w, c.lora_scale)
+        is_none = lambda x: x is None  # noqa: E731
+        if s == "lift_merge":
+            # FLoRA: the full-rank average reaches every client through the
+            # merged base; adapters restart from a fresh draw.
+            frozen = tree.tree_map(
+                lambda p, d: p if d is None else p + d.to(p.dtype),
+                frozen, deltas, is_leaf=is_none)
+            return self._fresh_adapters(round_idx), frozen
+        # FR-LoRA: the rank-r refactorization carries what fits in the
+        # adapters; the residual merges into the base (kept, not lost).
+        dl, treedef = tree.tree_flatten(deltas, is_leaf=is_none)
+        new_ad, resid = [], []
+        for d in dl:
+            if d is None:
+                new_ad.append(None)
+                resid.append(None)
+                continue
+            pair = lora_lib.svd_truncate(d / max(c.lora_scale, 1e-12),
+                                         c.rank)
+            new_ad.append(pair)
+            resid.append(d - c.lora_scale * (pair.b @ pair.a))
+        resid = treedef.unflatten(resid)
+        frozen = tree.tree_map(
+            lambda p, r: p if r is None else p + r.to(p.dtype),
+            frozen, resid, is_leaf=is_none)
+        return treedef.unflatten(new_ad), frozen
+
+    def _fresh_adapters(self, round_idx: int):
+        key = prng.PRNGKey(self.cfg.seed + 1000 + round_idx,
+                           device=self.device)
+        return lora_lib.tree_lora_init(key, self.frozen, self.target_fn,
+                                       self.cfg.rank)
+
     # -------------------------------------------------------------- 𝒮 -------
     def _method_syncs(self) -> bool:
-        return self.spec.state_sync != "none"
+        return (self.spec.state_sync != "none"
+                and self.spec.optimizer == "galore_adamw")
+
+    def _uplink(self, stacked_opt):
+        """Per-leaf lists of the client-stacked projected ṽ (K, ., r) and
+        bases (K, dim, r), and the ṽ tree's structure."""
+        g_stack = gal.galore_state_of(stacked_opt)
+        is_none = lambda x: x is None  # noqa: E731
+        vs, treedef = tree.tree_flatten(gal.extract_projected_v(g_stack),
+                                        is_leaf=is_none)
+        bs = tree.tree_leaves(gal.extract_bases(g_stack), is_leaf=is_none)
+        return vs, bs, treedef
+
+    @staticmethod
+    def _side(v_stack, b_stack):
+        rank = b_stack.shape[-1]
+        return rank, proj.RIGHT if v_stack.shape[-1] == rank else proj.LEFT
 
     @torch.no_grad()
     def _sync_states(self, stacked_opt, w, round_idx):
         """Factored 𝒮: shared-basis rounds sync on the projected ṽ
         directly; the adaptive round 0 runs the heterogeneous-basis sync
         (r×r transfer Grams). One batched program per shape bucket."""
-        g_stack = gal.galore_state_of(stacked_opt)
-        v_tree = gal.extract_projected_v(g_stack)      # leaves (K, ., r)
-        b_tree = gal.extract_bases(g_stack)            # leaves (K, dim, r)
         protocol = self.spec.state_sync
         hetero = self._round0_hetero(round_idx)
 
         def leaf_fn(v_stack, b_stack):
-            rank = b_stack.shape[-1]
-            side = proj.RIGHT if v_stack.shape[-1] == rank else proj.LEFT
+            rank, side = self._side(v_stack, b_stack)
             if hetero:
                 return sync_lib.sync_block_hetero_factored(
                     protocol, v_stack, b_stack, side, w, rank)
             return sync_lib.sync_block_synced_factored(
                 protocol, v_stack, side, w, rank)
 
-        is_none = lambda x: x is None  # noqa: E731
-        vs, treedef = tree.tree_flatten(v_tree, is_leaf=is_none)
-        bs = tree.tree_leaves(b_tree, is_leaf=is_none)
-        synced = sync_lib.map_sync_leaves(leaf_fn, vs, bs)
-        return treedef.unflatten(synced)
+        vs, bs, treedef = self._uplink(stacked_opt)
+        return treedef.unflatten(sync_lib.map_sync_leaves(leaf_fn, vs, bs))
+
+    @torch.no_grad()
+    def _sync_states_eager(self, stacked_opt, w, round_idx):
+        """The eager oracle's 𝒮, leaf by leaf: the factored shared-basis
+        path when ``factored_sync`` holds and bases are shared, otherwise
+        (the adaptive round 0, or ``factored_sync=False``) each client's ṽ
+        lifted with its own basis, synchronized densely and re-projected
+        onto client 0's end-of-round basis; stacked scan blocks (K, nb,
+        ., r) sync as one batch, as under the reference's vmap."""
+        protocol = self.spec.state_sync
+        use_factored = (self.cfg.factored_sync
+                        and not self._round0_hetero(round_idx))
+
+        def sync_block(v_stack, b_stack):
+            rank, side = self._side(v_stack, b_stack)
+            if use_factored:
+                return sync_lib.sync_block_synced_factored(
+                    protocol, v_stack, side, w, rank)
+            v32, b32 = v_stack.float(), b_stack.float()
+            if side == proj.RIGHT:
+                views = torch.einsum("k...mr,k...nr->k...mn", v32, b32)
+            else:
+                views = torch.einsum("k...mr,k...rn->k...mn", b32, v32)
+            lifted = sync_lib.sync_lifted_views(protocol, views, w, rank)
+            return sync_lib.project_state(lifted, b_stack[0], side)
+
+        vs, bs, treedef = self._uplink(stacked_opt)
+        return treedef.unflatten([None if v is None else sync_block(v, b)
+                                  for v, b in zip(vs, bs)])
 
     # ------------------------------------------------------------- helpers --
     def global_params(self) -> PyTree:
-        return merge_dense(self.frozen, self.global_trainable)
+        if self.spec.trainable in ("dense", "galore"):
+            return merge_dense(self.frozen, self.global_trainable)
+        with torch.no_grad():
+            return merge_lora(self.frozen, self.global_trainable,
+                              self.cfg.lora_scale)
 
     @torch.no_grad()
     def evaluate(self, batch) -> float:

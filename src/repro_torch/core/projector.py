@@ -17,10 +17,12 @@ SVD signs are implementation-defined, and the round-0 RSVD bases reach a
 sign-sensitive clamp (the synced ṽ install, ``galore.with_projected_v``).
 For CPU tensors the small SVD therefore runs LAPACK ``gesdd`` through
 SciPy, the routine JAX's CPU backend calls, so the port takes the same
-signs as the reference there; CUDA tensors use ``torch.linalg.svd``.
+signs as the reference there; CUDA tensors use ``torch.linalg.svd``, a
+stack of larger matrices several at once (:func:`_svd_card`).
 """
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
 import numpy as np
@@ -76,12 +78,55 @@ def reproject(buf, old_basis, new_basis, side: str):
 
 # ---------------------------------------------------------------- bases ----
 
+SVD_STREAMS = 8          # cuSOLVER SVDs in flight at once on the card
+
+
+def _svd_card(x):
+    """``torch.linalg.svd`` of each matrix of a CUDA stack, up to
+    :data:`SVD_STREAMS` at once: a host thread and a side stream per share
+    of the stack, each matrix the same call as alone. One cuSOLVER SVD of
+    a large matrix leaves most of the card idle and waits on the host for
+    its convergence flag, so matrices in flight together finish sooner.
+    Stacks of small matrices (≤ 32, which torch solves in one batched
+    Jacobi call), single matrices and tensors that need a gradient take
+    the plain batched call."""
+    flat = x.reshape((-1,) + x.shape[-2:])
+    n = min(SVD_STREAMS, flat.shape[0])
+    if n < 2 or max(x.shape[-2:]) <= 32 or x.requires_grad:
+        return torch.linalg.svd(x, full_matrices=False)
+    mm, nn = x.shape[-2:]
+    k = min(mm, nn)
+    u = flat.new_empty((flat.shape[0], mm, k))
+    s = flat.new_empty((flat.shape[0], k))
+    vt = flat.new_empty((flat.shape[0], k, nn))
+    main = torch.cuda.current_stream(x.device)
+    streams = [torch.cuda.Stream(x.device) for _ in range(n)]
+    for st in streams:
+        st.wait_stream(main)          # x is ready before any share reads it
+
+    def share(j):
+        with torch.cuda.stream(streams[j]):
+            for i in range(j, flat.shape[0], n):
+                ui, si, vti = torch.linalg.svd(flat[i], full_matrices=False)
+                u[i].copy_(ui)
+                s[i].copy_(si)
+                vt[i].copy_(vti)
+
+    with ThreadPoolExecutor(n) as pool:
+        list(pool.map(share, range(n)))          # re-raises a share's error
+    for st in streams:
+        main.wait_stream(st)
+    lead = x.shape[:-2]
+    return (u.reshape(lead + (mm, k)), s.reshape(lead + (k,)),
+            vt.reshape(lead + (k, nn)))
+
+
 def _svd(x):
     """Batched economy SVD ``(u, s, vt)``: LAPACK ``gesdd`` through SciPy
     for CPU tensors (the signs JAX's CPU backend gives), torch.linalg.svd
-    on the card."""
+    on the card (:func:`_svd_card`)."""
     if x.device.type != "cpu":
-        return torch.linalg.svd(x, full_matrices=False)
+        return _svd_card(x)
     import scipy.linalg
     a = x.detach().numpy()
     flat = a.reshape((-1,) + a.shape[-2:])

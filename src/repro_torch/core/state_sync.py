@@ -1,21 +1,26 @@
-"""State synchronization protocols 𝒮 in projected coordinates (port of the
-factored paths of ``repro/core/state_sync.py``).
+"""State synchronization protocols 𝒮 (port of ``repro/core/state_sync.py``,
+Definition 3.3 + Algorithm 1 line 12).
 
 Inputs are client-stacked projected second moments ṽ (leading client
-axis, further leading dims a batch) and, for heterogeneous rounds, the
-per-client bases. Protocols:
+axis, further leading dims a batch) and the bases they live on.
+Protocols:
 
+  none     — clients reinitialize adaptive states each round;
   avg      — weighted average of ṽ;
   avg_svd  — average then rank-r SVD re-projection (the identity on a
              shared-basis rank-≤r lift, so it equals avg there);
   ajive    — the paper's protocol (``core.ajive``).
 
-Shared-basis rounds sync directly on ṽ (:func:`sync_block_synced_factored`);
-the adaptive round 0, whose clients refreshed onto their own bases, closes
-the lift → sync → re-project-onto-client-0 round trip over r×r transfer
-Grams (:func:`sync_block_hetero_factored`). :func:`map_sync_leaves` runs
-one batched program per shape bucket. The dense lift oracles and the
-robust reductions are not ported (ROADMAP Queue 1 item 10).
+The dense protocols (:data:`SYNC_PROTOCOLS`, :func:`sync_lifted_views`,
+:func:`sync_block`) lift the views to (K, m, n) and return the lifted
+synchronized state; they are the eager oracle round's 𝒮 where bases
+differ. Shared-basis rounds sync directly on ṽ
+(:func:`sync_block_synced_factored`); the adaptive round 0, whose clients
+refreshed onto their own bases, closes the lift → sync →
+re-project-onto-client-0 round trip over r×r transfer Grams
+(:func:`sync_block_hetero_factored`). :func:`map_sync_leaves` runs one
+batched program per shape bucket. The robust reductions are not ported
+(ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -24,9 +29,94 @@ from typing import Optional
 import torch
 
 from . import projector as proj
-from .ajive import (_inv_sqrt_rank_safe, _no_robust, ajive_sync_factored,
-                    ajive_sync_hetero_factored, normalize_weights)
+from .ajive import (_inv_sqrt_rank_safe, _no_robust, ajive_sync,
+                    ajive_sync_factored, ajive_sync_hetero_factored,
+                    normalize_weights)
 from .galore import bucket_by_shape
+
+
+# ------------------------------------------------- dense (lifted) views ----
+
+def lift_views(v_stack, basis, side: str):
+    """ṽ (K, m, r) + basis (n, r) -> views (K, m, n) [right side]; left is
+    (K, r, n) + (m, r) -> (K, m, n)."""
+    if side == proj.RIGHT:
+        return torch.einsum("kmr,nr->kmn", v_stack, basis)
+    return torch.einsum("mr,krn->kmn", basis, v_stack)
+
+
+def project_state(lifted, basis, side: str):
+    """Re-project a lifted (..., m, n) state onto a (possibly new) basis
+    (..., dim, r); leading dims batch."""
+    if side == proj.RIGHT:
+        return lifted @ basis                  # (m,n)@(n,r) -> (m,r)
+    return basis.mT @ lifted                   # (r,m)@(m,n) -> (r,n)
+
+
+def _svd_rank(avg, rank: int):
+    u, s, vt = proj._svd(avg)
+    return (u[..., :rank] * s[..., None, :rank]) @ vt[..., :rank, :]
+
+
+def sync_none(v_stack, basis, side, weights=None, rank=None):
+    return None
+
+
+def sync_avg(v_stack, basis, side, weights=None, rank=None):
+    w = normalize_weights(weights, v_stack.shape[0], device=v_stack.device)
+    views = lift_views(v_stack.float(), basis, side)
+    return torch.einsum("k,kmn->mn", w, views)
+
+
+def sync_avg_svd(v_stack, basis, side, weights=None, rank=None):
+    avg = sync_avg(v_stack, basis, side, weights)
+    return _svd_rank(avg, rank if rank is not None else basis.shape[1])
+
+
+def sync_ajive(v_stack, basis, side, weights=None, rank=None):
+    """The paper's 𝒮: spectral shared-signal extraction across client
+    views."""
+    r = rank if rank is not None else basis.shape[1]
+    views = lift_views(v_stack.float(), basis, side)
+    return ajive_sync(views, rank=r, weights=weights)
+
+
+SYNC_PROTOCOLS = {
+    "none": sync_none,
+    "avg": sync_avg,
+    "avg_svd": sync_avg_svd,
+    "ajive": sync_ajive,
+}
+
+
+def sync_lifted_views(protocol: str, views, weights=None,
+                      rank: Optional[int] = None):
+    """Run protocol 𝒮 on already-lifted (k, *batch, m, n) views — the
+    dense reference dispatch, for clients that lifted with heterogeneous
+    bases; each batch entry (a stacked scan block) is synced on its
+    own."""
+    if protocol == "ajive":
+        return ajive_sync(views, rank=rank, weights=weights)
+    avg = torch.einsum("k,k...->...", normalize_weights(
+        weights, views.shape[0], device=views.device), views)
+    if protocol == "avg":
+        return avg
+    if protocol == "avg_svd":
+        return _svd_rank(avg, rank)
+    raise ValueError(protocol)
+
+
+def sync_block(protocol: str, v_stack, old_basis, new_basis, side: str,
+               weights=None, rank: Optional[int] = None):
+    """One adapted block end to end: lift with the round-k basis,
+    synchronize, re-project onto the round-(k+1) basis, clamped at 0.
+    Returns the next-round ṽ init, or None for 'none'. The dense
+    reference path (materializes (k, m, n) views)."""
+    lifted = SYNC_PROTOCOLS[protocol](v_stack, old_basis, side, weights,
+                                      rank)
+    if lifted is None:
+        return None
+    return torch.clamp(project_state(lifted, new_basis, side), min=0.0)
 
 
 def sync_block_synced_factored(protocol: str, v_stack, side: str,
@@ -155,3 +245,16 @@ def map_sync_leaves(leaf_fn, v_leaves, b_leaves):
         for j, i in enumerate(idxs):
             out[i] = res[j]
     return out
+
+
+def sync_block_factored(protocol: str, v_stack, old_basis, new_basis,
+                        side: str, weights=None, rank: Optional[int] = None):
+    """Factored counterpart of :func:`sync_block`: synchronize in projected
+    coordinates, then change basis with the r×r transfer — the dense (m, n)
+    lift is never built. Assumes a basis shared by every client."""
+    synced = sync_block_synced_factored(protocol, v_stack, side, weights,
+                                        rank)
+    if synced is None:
+        return None
+    return torch.clamp(proj.reproject(synced, old_basis, new_basis, side),
+                       min=0.0)

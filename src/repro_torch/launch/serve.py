@@ -14,6 +14,15 @@ Three serving paths over the same model:
                          mid-segment via EOS/budget masks, queued requests
                          are admitted into freed slots between segments.
 
+At temperature > 0 every path draws tokens as JAX does, with
+``utils.prng.categorical`` (the Gumbel-max draw on threefry bits) along
+JAX's key chains from ``key = PRNGKey(seed)``: :func:`generate` samples
+the first token with ``key`` and splits ``key, sub = split(key)`` before
+each later one; :func:`generate_scan` samples step i with ``fold_in(key,
+i)``; :class:`SlotServer` splits its key at each admission and samples
+step i of a segment with ``fold_in(key, base + i)``, ``base`` counting
+the steps of all earlier segments. Greedy decoding derives no key.
+
 Per-row heterogeneous adapters ride along on all three: pass ``adapters``
 (B,) int ids and params whose target leaves are ``MultiAdapterDelta``
 tables (:mod:`repro_torch.launch.adapters`). Everything runs under
@@ -44,19 +53,25 @@ from .. import resolve_device, synchronize
 from ..configs import get_config, smoke_variant
 from ..models import layers
 from ..models import model as model_lib
-from ..utils import tree
+from ..utils import prng, tree
 
 PAD_ID = 0   # emitted by retired slots inside a segment; never surfaced
 
 
-def _sample(logits, gen: Optional[torch.Generator], temperature):
-    """Greedy argmax when temperature <= 0 (``gen`` unused), else a draw
-    from softmax(logits / temperature) with ``gen``. Draws are not
-    bit-comparable with JAX's; only greedy is."""
+def _sample(logits, key, temperature):
+    """Greedy argmax when temperature <= 0 (``key`` unused, may be None),
+    else ``categorical(key, logits / temperature)``: JAX's draw, token for
+    token. Every row of the (B, V) noise is drawn, retired slots' too, so
+    the bits line up with JAX's."""
     if temperature <= 0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    probs = torch.softmax(logits / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=gen)[:, 0].to(torch.int32)
+    return prng.categorical(key, logits / temperature).to(torch.int32)
+
+
+def _split(key):
+    """``key, sub = jax.random.split(key)``."""
+    ks = prng.split(key)
+    return ks[0], ks[1]
 
 
 def _adapter_count(params) -> Optional[int]:
@@ -92,12 +107,6 @@ def _ids(adapters, batch: int, device, params) -> Optional[torch.Tensor]:
     return ids
 
 
-def _generator(device, seed: int) -> torch.Generator:
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
-    return gen
-
-
 def _prefill(params, cfg, prompts, cache_len, ids, device):
     state = model_lib.init_decode_state(cfg, prompts.shape[0], cache_len,
                                         device=device)
@@ -120,30 +129,34 @@ def generate(params, cfg, prompts, new_tokens: int, cache_len: int,
     dev = resolve_device(device)
     prompts = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
     ids = _ids(adapters, prompts.shape[0], dev, params)
-    gen = _generator(dev, seed)
+    key = prng.PRNGKey(seed, device=dev)
     logits, state = _prefill(params, cfg, prompts, cache_len, ids, dev)
-    tok = _sample(logits, gen, temperature)
+    tok = _sample(logits, key, temperature)
     out = [tok]
     for _ in range(new_tokens - 1):
+        sub = None
+        if temperature > 0:
+            key, sub = _split(key)
         with layers.adapter_ids(ids):
             logits, state = model_lib.decode_step(params, cfg, tok, state)
-        tok = _sample(logits, gen, temperature)
+        tok = _sample(logits, sub, temperature)
         out.append(tok)
     return torch.cat([prompts, torch.stack(out, dim=1)], dim=1)
 
 
-def _scan_decode(params, cfg, tok0, state, steps: int, ids, gen,
+def _scan_decode(params, cfg, tok0, state, steps: int, ids, key,
                  temperature: float):
     """``steps`` decode steps after ``tok0``, each token written into a
     preallocated (B, steps) device buffer; nothing reads the device
-    until the caller does."""
+    until the caller does. Step i samples with ``fold_in(key, i)``."""
     toks = torch.empty((tok0.shape[0], steps), dtype=torch.int32,
                        device=tok0.device)
     tok = tok0
     with layers.adapter_ids(ids):
         for i in range(steps):
             logits, state = model_lib.decode_step(params, cfg, tok, state)
-            tok = _sample(logits, gen, temperature)
+            sub = prng.fold_in(key, i) if temperature > 0 else None
+            tok = _sample(logits, sub, temperature)
             toks[:, i] = tok
     return toks
 
@@ -157,12 +170,12 @@ def generate_scan(params, cfg, prompts, new_tokens: int, cache_len: int,
     dev = resolve_device(device)
     prompts = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
     ids = _ids(adapters, prompts.shape[0], dev, params)
-    gen = _generator(dev, seed)
+    key = prng.PRNGKey(seed, device=dev)
     logits, state = _prefill(params, cfg, prompts, cache_len, ids, dev)
-    tok0 = _sample(logits, gen, temperature)
+    tok0 = _sample(logits, key, temperature)
     if new_tokens <= 1:
         return torch.cat([prompts, tok0[:, None]], dim=1)
-    toks = _scan_decode(params, cfg, tok0, state, new_tokens - 1, ids, gen,
+    toks = _scan_decode(params, cfg, tok0, state, new_tokens - 1, ids, key,
                         float(temperature))
     return torch.cat([prompts, tok0[:, None], toks], dim=1)
 
@@ -213,7 +226,8 @@ class SlotServer:
         self.segment = int(segment)
         self.eos_id = int(eos_id)          # -1 = no EOS, budget-only
         self.temperature = float(temperature)
-        self.gen = _generator(self.device, seed)
+        self.key = prng.PRNGKey(seed, device=self.device)
+        self._step_base = 0     # decode steps of all earlier segments
         self.n_adapters = _adapter_count(params)
         # The JAX version casts its state to decode_step's output dtypes
         # here (RWKV shifts start bf16 and come out in the activation
@@ -255,7 +269,10 @@ class SlotServer:
             t0 = time.perf_counter()
             logits, sub_state = _prefill(self.params, self.cfg, prompt,
                                          self.cache_len, sub_ids, self.device)
-            tok1 = _sample(logits, self.gen, self.temperature)
+            sub = None
+            if self.temperature > 0:
+                self.key, sub = _split(self.key)
+            tok1 = _sample(logits, sub, self.temperature)
             first = int(tok1[0])               # waits for the device
             self.stats["prefill_s"] += time.perf_counter() - t0
             self.stats["prefill_tokens"] += int(prompt.shape[1])
@@ -272,7 +289,8 @@ class SlotServer:
     def _segment(self, act, rem):
         """``segment`` decode steps over the live batch with device-side
         retirement: an inactive row emits PAD_ID (its state keeps advancing
-        harmlessly; admission overwrites the whole slot)."""
+        harmlessly; admission overwrites the whole slot). Step i samples
+        with ``fold_in(key, base + i)``."""
         toks = torch.empty((self.slots, self.segment), dtype=torch.int32,
                            device=self.device)
         tok, state = self.tok, self.state
@@ -280,7 +298,9 @@ class SlotServer:
             for i in range(self.segment):
                 logits, state = model_lib.decode_step(self.params, self.cfg,
                                                       tok, state)
-                nxt = _sample(logits, self.gen, self.temperature)
+                sub = (prng.fold_in(self.key, self._step_base + i)
+                       if self.temperature > 0 else None)
+                nxt = _sample(logits, sub, self.temperature)
                 nxt = torch.where(act, nxt, torch.full_like(nxt, PAD_ID))
                 rem = torch.where(act, rem - 1, rem)
                 act = act & (rem > 0)
@@ -303,6 +323,7 @@ class SlotServer:
         toks_np = toks.cpu().numpy()           # waits for the device
         self.stats["decode_s"] += time.perf_counter() - t0
         self.stats["segments"] += 1
+        self._step_base += self.segment
         self.active = act.cpu().numpy().copy()
         self.remaining = rem.cpu().numpy().astype(np.int32)
         for slot in np.nonzero(act_before)[0]:
@@ -426,27 +447,30 @@ def main(argv=None):
 
     @torch.inference_mode()
     def run_once(record: bool):
-        gen = _generator(dev, args.seed)
+        key = prng.PRNGKey(args.seed, device=dev)
         synchronize(dev)                   # fence before the clock
         t0 = time.perf_counter()
         logits, state = _prefill(params, cfg, prompts, cache, ids, dev)
         synchronize(dev)
         t1 = time.perf_counter()
-        tok0 = _sample(logits, gen, args.temperature)
+        tok0 = _sample(logits, key, args.temperature)
         outl = [tok0]
         if args.mode == "scan":
             if args.new_tokens > 1:
                 outl.append(_scan_decode(params, cfg, tok0, state,
-                                         args.new_tokens - 1, ids, gen,
+                                         args.new_tokens - 1, ids, key,
                                          args.temperature))
             out = torch.cat([prompts, tok0[:, None]] + outl[1:], dim=1)
         else:
-            tok = tok0
+            k, tok = key, tok0
             for _ in range(args.new_tokens - 1):
+                sub = None
+                if args.temperature > 0:
+                    k, sub = _split(k)
                 with layers.adapter_ids(ids):
                     logits_i, state = model_lib.decode_step(params, cfg, tok,
                                                             state)
-                tok = _sample(logits_i, gen, args.temperature)
+                tok = _sample(logits_i, sub, args.temperature)
                 outl.append(tok)
             out = torch.cat([prompts, torch.stack(outl, dim=1)], dim=1)
         synchronize(dev)

@@ -1,6 +1,6 @@
-"""AdamW (port of ``repro/optim/adamw.py``): Algorithm 4 of
-Appendix A, with explicit ``NamedTuple`` states so the federated layer
-can read and write them."""
+"""AdamW, Adam, SGD and heavy-ball momentum (port of
+``repro/optim/adamw.py``): Algorithms 2-4 of Appendix A, with explicit
+``NamedTuple`` states so the federated layer can read and write them."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
@@ -73,6 +73,25 @@ def add_decayed_weights(weight_decay: float) -> GradientTransformation:
     return GradientTransformation(init, update)
 
 
+class MomentumState(NamedTuple):
+    momentum: object
+
+
+def scale_by_momentum(beta: float = 0.9) -> GradientTransformation:
+    """Heavy-ball momentum (Algorithm 3): v <- beta*v + g; update = v."""
+
+    def init(params):
+        return MomentumState(momentum=_tree_zeros_f32(params))
+
+    def update(grads, state, params=None):
+        del params
+        buf = tree.tree_map(lambda b, g: beta * b + g.float(),
+                            state.momentum, grads)
+        return buf, MomentumState(momentum=buf)
+
+    return GradientTransformation(init, update)
+
+
 def adamw(learning_rate, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
           clip_norm: Optional[float] = None) -> GradientTransformation:
     txs = []
@@ -81,4 +100,21 @@ def adamw(learning_rate, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
     txs += [scale_by_adam(b1, b2, eps),
             add_decayed_weights(weight_decay),
             scale_by_learning_rate(learning_rate)]
+    return chain(*txs)
+
+
+def adam(learning_rate, b1=0.9, b2=0.999, eps=1e-8,
+         clip_norm: Optional[float] = None) -> GradientTransformation:
+    return adamw(learning_rate, b1, b2, eps, weight_decay=0.0,
+                 clip_norm=clip_norm)
+
+
+def sgd(learning_rate, momentum: Optional[float] = None,
+        clip_norm: Optional[float] = None) -> GradientTransformation:
+    txs = []
+    if clip_norm is not None:
+        txs.append(clip_by_global_norm(clip_norm))
+    if momentum is not None:
+        txs.append(scale_by_momentum(momentum))
+    txs.append(scale_by_learning_rate(learning_rate))
     return chain(*txs)

@@ -5,6 +5,7 @@ A ``GradientTransformation`` is an ``(init, update)`` pair:
 
     state = tx.init(params)
     updates, state = tx.update(grads, state, params)
+    params = apply_updates(params, updates)
 
 Trees are the port's (``utils.tree``): dicts, tuples, ``NamedTuple``s and
 ``None`` as an empty subtree. Updates are computed out of place, as in
@@ -26,6 +27,13 @@ PyTree = Any
 class GradientTransformation:
     init: Callable[[PyTree], PyTree]
     update: Callable[[PyTree, PyTree, Optional[PyTree]], tuple]
+
+
+def apply_updates(params: PyTree, updates: PyTree) -> PyTree:
+    """``p + u`` cast to p's dtype per leaf (None updates pass through)."""
+    return tree.tree_map(
+        lambda p, u: p if u is None else p + u.to(p.dtype), params, updates,
+        is_leaf=lambda x: x is None)
 
 
 def chain(*txs: GradientTransformation) -> GradientTransformation:

@@ -1,6 +1,7 @@
-"""The slice of ``jax.random`` the FedGaLore round needs, in torch integer
-ops: threefry-2x32, ``PRNGKey``, ``fold_in``, ``split``, 32-bit ``bits``,
-``uniform`` and ``normal``.
+"""The slice of ``jax.random`` the port needs, in torch integer ops:
+threefry-2x32, ``PRNGKey``, ``fold_in``, ``split``, 32-bit ``bits``,
+``uniform``, ``normal``, and ``gumbel`` / ``categorical`` for sampled
+decoding.
 
 The seeded-broadcast protocol rebuilds every projector basis from an
 integer seed, so the port has to draw JAX's bits exactly. The layout is
@@ -14,7 +15,10 @@ add and shift, so the same code runs on the CPU and on the card. Floats
 are float32. ``normal`` is ``sqrt(2)·erfinv(u)`` with XLA's float32
 ``ErfInv`` polynomial (two 9-term sets picked by ``w = -log1p(-u²) < 5``),
 not ``torch.erfinv``: the latter differs from ``jax.random.normal`` on
-most entries by up to ~2e-5, the polynomial by about one ulp.
+most entries by up to ~2e-5, the polynomial by about one ulp. ``gumbel``
+is jax's default (``mode="low"``) sampler, ``-log(-log(u))`` with u
+uniform on [tiny, 1); torch's ``log`` may round one ulp apart from XLA's,
+which moves a ``categorical`` draw only at a near-tie.
 """
 from __future__ import annotations
 
@@ -143,3 +147,24 @@ def normal(key: torch.Tensor, shape) -> torch.Tensor:
     (nextafter(-1, 0), 1)."""
     u = uniform(key, shape, _NEXT_AFTER_M1, 1.0)
     return _SQRT2_F32 * erfinv_f32(u)
+
+
+_TINY_F32 = float(torch.finfo(torch.float32).tiny)
+
+
+def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)`` (jax 0.9's default
+    ``mode="low"``): ``-log(-log(u))``, u uniform on [tiny, 1)."""
+    return -torch.log(-torch.log(uniform(key, shape, _TINY_F32, 1.0)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor, axis: int = -1
+                ) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis)`` for float32 logits:
+    the Gumbel-max draw ``argmax(logits + gumbel(key, logits.shape))``
+    (ties go to the first index, as in ``jnp.argmax``). JAX draws the
+    noise in the logits' dtype; the port's ``uniform`` is float32 only."""
+    if logits.dtype != torch.float32:
+        raise ValueError(f"categorical needs float32 logits, got "
+                         f"{logits.dtype}")
+    return torch.argmax(logits + gumbel(key, logits.shape), dim=axis)

@@ -188,9 +188,13 @@ def _tiny_engine(**kw):
 
 
 def test_unported_paths_raise_naming_the_roadmap():
-    for method in ("fedavg_full", "fedit", "flora"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            _tiny_engine(method=method)
+    """Only population and robustness (ROADMAP Queue 1 item 10) are left
+    to refuse: every method builds, in every round form."""
+    from repro_torch.core.fed import METHODS
+    for method in METHODS:
+        for kw in ({}, dict(fused_round=False), dict(factored_sync=False),
+                   dict(factored_clients=False), dict(lift_free=False)):
+            _tiny_engine(method=method, **kw)
     for kw in (dict(quarantine=True), dict(robust_agg="geomedian"),
                dict(participation=object())):
         with pytest.raises(NotImplementedError, match="item 10"):

@@ -110,3 +110,65 @@ def test_seeded_block_key_chains_equal(seed, refresh, block):
         jax.vmap(lambda k: jproj.stacked_keys(k, 2))(jks), 48, 4))
     got = tproj.random_basis(tproj.stacked_keys(tks, 2), 48, 4).numpy()
     assert np.max(np.abs(got - want)) <= 1e-6
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("shape", [(7,), (8, 512), (1, 151936)])
+def test_gumbel_close(seed, shape):
+    """jax's default (mode "low") Gumbel noise: the uniform bits are equal,
+    and torch's log rounds at most a few ulp from XLA's, so the noise
+    agrees to 2e-6 of max(1, |g|)."""
+    got = prng.gumbel(prng.PRNGKey(seed), shape).numpy()
+    want = np.asarray(jax.random.gumbel(_jkey(seed), shape))
+    assert got.dtype == want.dtype == np.float32
+    assert np.all(np.abs(got - want) <= 2e-6 * np.maximum(1.0, np.abs(want)))
+
+
+def _sampling_logits(seed):
+    """(8, 512) rows: Gaussian logits, an all-equal row, a row whose two
+    largest logits tie exactly, a row with -inf entries, a peaked row and
+    a row of large magnitude."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((8, 512)).astype(np.float32)
+    x[1] = 0.25
+    x[2, [17, 300]] = 4.0
+    x[3, ::3] = -np.inf
+    x[4, 99] = 30.0
+    x[5] *= 1e3
+    return x
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_categorical_equal(seed):
+    """Token for token JAX's draw, ties and masked entries included; the
+    tied pair of row 2 is taken on both sides by the same noise."""
+    logits = _sampling_logits(seed)
+    for temp in (1.0, 0.8):
+        want = np.asarray(jax.random.categorical(
+            _jkey(seed), jnp.asarray(logits / temp)))
+        got = prng.categorical(prng.PRNGKey(seed),
+                               torch.from_numpy(logits / temp))
+        assert got.dtype == torch.int64 and got.shape == (8,)
+        assert np.array_equal(got.numpy(), want)
+    assert int(got[4]) == 99
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_categorical_vocab_wide_and_batched_axis(seed):
+    """A qwen-vocab row (151,936 logits) and a draw along axis 0."""
+    rng = np.random.default_rng(seed)
+    wide = rng.standard_normal((2, 151936)).astype(np.float32)
+    key = jax.random.fold_in(_jkey(seed), 3)
+    want = np.asarray(jax.random.categorical(key, jnp.asarray(wide)))
+    got = prng.categorical(prng.fold_in(prng.PRNGKey(seed), 3),
+                           torch.from_numpy(wide))
+    assert np.array_equal(got.numpy(), want)
+    cols = rng.standard_normal((64, 5)).astype(np.float32)
+    want = np.asarray(jax.random.categorical(_jkey(seed), jnp.asarray(cols),
+                                             axis=0))
+    got = prng.categorical(prng.PRNGKey(seed), torch.from_numpy(cols),
+                           axis=0)
+    assert np.array_equal(got.numpy(), want)
+    with pytest.raises(ValueError, match="float32"):
+        prng.categorical(prng.PRNGKey(seed), torch.zeros(2, 4,
+                                                         dtype=torch.bfloat16))

@@ -324,6 +324,48 @@ def test_slot_server_matches_jax(slice_):
     assert not tsrv.active.any() and not tsrv.queue
 
 
+TEMP = 0.8
+
+
+@pytest.mark.parametrize("scan", [False, True])
+def test_sampled_generate_matches_jax(slice_, scan):
+    """At temperature 0.8 the port draws JAX's tokens: the first with
+    ``PRNGKey(seed)`` itself, then split before each step (``generate``)
+    or ``fold_in(key, i)`` at step i (``generate_scan``)."""
+    jcfg, tcfg, _, served, tserved, _ = slice_
+    prompts = _prompts(2, (G, 8), jcfg.vocab_size)
+    ids = np.array([2, 0, 1], np.int32)
+    fn = "generate_scan" if scan else "generate"
+    want = np.asarray(getattr(jserve, fn)(
+        served, jcfg, jnp.asarray(prompts), 6, 16, temperature=TEMP,
+        key=jax.random.PRNGKey(5), adapters=jnp.asarray(ids)))
+    got = getattr(tserve, fn)(tserved, tcfg, prompts, 6, 16,
+                              temperature=TEMP, seed=5, adapters=ids,
+                              device="cpu")
+    greedy = getattr(tserve, fn)(tserved, tcfg, prompts, 6, 16,
+                                 adapters=ids, device="cpu")
+    assert np.array_equal(got.numpy(), want)
+    assert not torch.equal(got, greedy)       # the draw is not the argmax
+
+
+def test_sampled_slot_server_matches_jax(slice_):
+    """Sampled continuous batching: a split per admission, ``fold_in(key,
+    base + i)`` within a segment, through retire + admit."""
+    jcfg, tcfg, _, served, tserved, _ = slice_
+    rng = np.random.default_rng(4)
+    spec = [(rng.integers(0, jcfg.vocab_size, 8 if i % 2 else 6),
+             5 if i % 3 else 3, i % G) for i in range(5)]
+    jsrv = jserve.SlotServer(served, jcfg, slots=2, cache_len=16, segment=2,
+                             temperature=TEMP, seed=3)
+    jout = jsrv.run([jserve.Request(rid=i, prompt=p, max_new=n, adapter=a)
+                     for i, (p, n, a) in enumerate(spec)])
+    tsrv = tserve.SlotServer(tserved, tcfg, slots=2, cache_len=16, segment=2,
+                             temperature=TEMP, seed=3, device="cpu")
+    tout = tsrv.run([tserve.Request(rid=i, prompt=p, max_new=n, adapter=a)
+                     for i, (p, n, a) in enumerate(spec)])
+    assert tout["outputs"] == jout["outputs"]
+
+
 def test_eos_retires_mid_stream(slice_):
     _, tcfg, _, _, tserved, _ = slice_
     prompt = _prompts(5, (8,), tcfg.vocab_size)

@@ -1,8 +1,9 @@
-"""Port parity: factored 𝒮 and 𝒜 — ``core.ajive`` (shared and
-heterogeneous bases, both sides, stacked, all three joint-basis routes),
-``core.state_sync`` (avg, avg_svd, ajive; per leaf and bucketed) and
-``core.aggregation`` — against the JAX package on seeded random stacks,
-≤1e-5 relative.
+"""Port parity: 𝒮 and 𝒜 — ``core.ajive`` (factored: shared and
+heterogeneous bases, both sides, stacked, all three joint-basis routes;
+dense: ``ajive`` with a fixed and an estimated joint rank, ``ajive_sync``),
+``core.state_sync`` (avg, avg_svd, ajive: factored per leaf and bucketed,
+and the dense protocols on lifted views) and ``core.aggregation`` —
+against the JAX package on seeded random stacks, ≤1e-5 relative.
 
 The stacks carry a shared low-rank component plus small client noise, as
 the projected second moments of a federated round do, so AJIVE's joint
@@ -13,6 +14,7 @@ orthonormal bases, as clients that refreshed on similar data hold.
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -22,6 +24,7 @@ from repro.core import state_sync as jsync
 from repro_torch.core import aggregation as tagg
 from repro_torch.core import ajive as tajive
 from repro_torch.core import state_sync as tsync
+from repro_torch.utils import prng
 
 R = 4
 
@@ -224,3 +227,138 @@ def test_weighted_average():
                                 torch.from_numpy(w))
     assert got["b"] is None
     assert _rel(got["a"].numpy(), want["a"]) <= 1e-6
+
+
+# --------------------------------------------------- dense (lifted) views --
+
+def _views(rng, k, n, m, joint=3, indiv=2, noise=1e-3):
+    """(k, n, m) views: a shared rank-``joint`` column space with
+    per-view loadings (singular values 3..2), a rank-``indiv`` individual
+    part per view (1..0.5) and small noise — well separated spectra, so
+    every SVD of the pipeline has a gap at its rank."""
+    u = np.linalg.qr(rng.standard_normal((n, joint)))[0]
+    out = []
+    for _ in range(k):
+        vj = np.linalg.qr(rng.standard_normal((m, joint)))[0]
+        ui = np.linalg.qr(rng.standard_normal((n, indiv)))[0]
+        vi = np.linalg.qr(rng.standard_normal((m, indiv)))[0]
+        x = (u * np.linspace(3.0, 2.0, joint)) @ vj.T \
+            + (ui * np.linspace(1.0, 0.5, indiv)) @ vi.T \
+            + noise * rng.standard_normal((n, m))
+        out.append(x)
+    return np.stack(out).astype(np.float32)
+
+
+@pytest.mark.parametrize("joint_rank", [3, None])
+@pytest.mark.parametrize("center", [False, True])
+def test_dense_ajive_matches_jax(joint_rank, center):
+    """Phases 1-3 on dense views; with ``joint_rank=None`` the Wedin and
+    random-direction bounds draw through the threefry keys and must pick
+    the same rank."""
+    v = _views(np.random.default_rng(8), 4, 40, 30)
+    want, jrank = jajive.ajive(jnp.asarray(v), signal_ranks=5,
+                               joint_rank=joint_rank, center=center,
+                               key=jax.random.PRNGKey(3),
+                               return_rank_diag=True)
+    got, trank = tajive.ajive(torch.from_numpy(v), signal_ranks=5,
+                              joint_rank=joint_rank, center=center,
+                              key=prng.PRNGKey(3), return_rank_diag=True)
+    assert int(trank) == int(jrank)
+    if joint_rank is None and not center:
+        assert int(trank) == 3
+    for name in ("joint", "individual", "joint_mean", "sv_joint"):
+        assert _rel(getattr(got, name).numpy(), getattr(want, name)) <= 1e-5
+    assert np.max(np.abs(got.noise.numpy() - np.asarray(want.noise))) \
+        <= 1e-5 * np.max(np.abs(v))
+    jb, tb = np.asarray(want.joint_basis), got.joint_basis.numpy()
+    assert _rel(tb @ tb.T, jb @ jb.T) <= 1e-5
+
+
+def test_dense_bounds_match_jax():
+    rng = np.random.default_rng(9)
+    x = _views(rng, 1, 24, 18)[0]
+    u, s, vt = np.linalg.svd(x, full_matrices=False)
+    args = [u[:, :3], s[:3], vt[:3]]
+    want = jajive.wedin_bound(jnp.asarray(x), *map(jnp.asarray, args),
+                              jax.random.PRNGKey(4))
+    got = tajive.wedin_bound(torch.from_numpy(x),
+                             *(torch.from_numpy(a.copy()) for a in args),
+                             prng.PRNGKey(4))
+    assert _rel(got.numpy(), want) <= 1e-5
+    want = jajive.random_direction_bound([(24, 18)] * 3, [3, 4, 5],
+                                         jax.random.PRNGKey(6))
+    got = tajive.random_direction_bound([(24, 18)] * 3, [3, 4, 5],
+                                        prng.PRNGKey(6))
+    assert _rel(got.numpy(), want) <= 1e-5
+
+
+@pytest.mark.parametrize("protocol", ["none", "avg", "avg_svd", "ajive"])
+@pytest.mark.parametrize("side", ["right", "left"])
+def test_dense_protocols_match_jax(protocol, side):
+    """``SYNC_PROTOCOLS`` on lifted views, ``sync_block`` onto a new basis
+    and ``sync_block_factored``, against JAX; on a shared basis the dense
+    and the factored round trips agree."""
+    rng = np.random.default_rng(10)
+    v = _stack(rng, 4, (), side, 48 if side == "right" else 40)
+    b_old, b_new = _bases(rng, 2, (), 32)
+    w = _weights(4)
+    jargs = (jnp.asarray(v), jnp.asarray(b_old), side, jnp.asarray(w), R)
+    targs = (torch.from_numpy(v), torch.from_numpy(b_old), side,
+             torch.from_numpy(w), R)
+    want = jsync.SYNC_PROTOCOLS[protocol](*jargs)
+    got = tsync.SYNC_PROTOCOLS[protocol](*targs)
+    if protocol == "none":
+        assert got is None and want is None
+        return
+    assert _rel(got.numpy(), want) <= 1e-5
+    views = jsync.lift_views(jnp.asarray(v), jnp.asarray(b_old), side)
+    tviews = tsync.lift_views(torch.from_numpy(v), torch.from_numpy(b_old),
+                              side)
+    assert _rel(tviews.numpy(), views) <= 1e-6
+    lifted = tsync.sync_lifted_views(protocol, tviews, torch.from_numpy(w),
+                                     R)
+    assert _rel(lifted.numpy(), jsync.sync_lifted_views(
+        protocol, views, jnp.asarray(w), R)) <= 1e-5
+    assert _rel(tsync.project_state(lifted, torch.from_numpy(b_new),
+                                    side).numpy(),
+                jsync.project_state(jnp.asarray(lifted.numpy()),
+                                    jnp.asarray(b_new), side)) <= 1e-6
+    dense = tsync.sync_block(protocol, torch.from_numpy(v),
+                             torch.from_numpy(b_old), torch.from_numpy(b_new),
+                             side, torch.from_numpy(w), R)
+    assert _rel(dense.numpy(), jsync.sync_block(
+        protocol, jnp.asarray(v), jnp.asarray(b_old), jnp.asarray(b_new),
+        side, jnp.asarray(w), R)) <= 1e-5
+    fact = tsync.sync_block_factored(protocol, torch.from_numpy(v),
+                                     torch.from_numpy(b_old),
+                                     torch.from_numpy(b_new), side,
+                                     torch.from_numpy(w), R)
+    assert _rel(fact.numpy(), jsync.sync_block_factored(
+        protocol, jnp.asarray(v), jnp.asarray(b_old), jnp.asarray(b_new),
+        side, jnp.asarray(w), R)) <= 1e-5
+    assert _rel(fact.numpy(), dense.numpy()) <= 1e-4
+
+
+@pytest.mark.parametrize("protocol", ["avg", "avg_svd", "ajive"])
+def test_dense_sync_of_stacked_blocks_matches_jax_vmap(protocol):
+    """Lifted views with a stacked-block axis (k, nb, n, m) sync each block
+    on its own, as the reference's eager 𝒮 does under ``jax.vmap``, and
+    re-project onto per-block bases."""
+    rng = np.random.default_rng(11)
+    v = np.stack([_views(rng, 4, 40, 30) for _ in range(3)], axis=1)
+    basis = np.stack([_bases(rng, 1, (), 30)[0] for _ in range(3)])
+    w = _weights(4)
+    want = jax.vmap(lambda x: jsync.sync_lifted_views(
+        protocol, x, jnp.asarray(w), R), in_axes=1)(jnp.asarray(v))
+    got = tsync.sync_lifted_views(protocol, torch.from_numpy(v),
+                                  torch.from_numpy(w), R)
+    assert got.shape == (3, 40, 30)
+    assert _rel(got.numpy(), want) <= 1e-5
+    jproj = jax.vmap(lambda x, b: jsync.project_state(x, b, "right"))(
+        jnp.asarray(got.numpy()), jnp.asarray(basis))
+    assert _rel(tsync.project_state(got, torch.from_numpy(basis),
+                                    "right").numpy(), jproj) <= 1e-6
+    jproj = jax.vmap(lambda x, b: jsync.project_state(x, b, "left"))(
+        jnp.asarray(got.numpy().transpose(0, 2, 1)), jnp.asarray(basis))
+    assert _rel(tsync.project_state(got.mT, torch.from_numpy(basis),
+                                    "left").numpy(), jproj) <= 1e-6
