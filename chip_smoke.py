@@ -20,6 +20,11 @@ weights from ``--seed``):
   the eager ``fedgalore`` oracle (``fused_round=False``: dense clients
   through ``galore_precond_step`` with the update projected back, round
   1's 𝒮 through ``jacobi_eigh``);
+* population and robustness: five guarded FedGaLore rounds of a
+  ``PopulationRunner`` over a 32-client population (drops, stragglers
+  merging stale, sign-flip / scale / NaN uploads quarantined,
+  trimmed-mean 𝒜 and 𝒮, the store spilling), kill and resume from a
+  snapshot, and the honest guarded round bitwise the plain one;
 * sampled decoding: ``categorical`` on the card against the CPU, and a
   sampled ``generate`` / ``SlotServer`` run twice from one seed;
 * serving starcoder2-7b (32 layers, d 4608, 36 q heads on 4 kv heads of
@@ -50,9 +55,12 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import weakref
 from pathlib import Path
@@ -165,6 +173,34 @@ EAGER_LAUNCHES = {
     0: {"galore_precond_step": 3 * CLIENTS * LOCAL_STEPS, "jacobi_eigh": 0},
     1: {"galore_precond_step": 3 * CLIENTS * LOCAL_STEPS, "jacobi_eigh": 7},
 }
+
+
+# The population phase (stated before its first run): phase_train's
+# traffic (C = 4 slots, T = 2, batch 4 x 128, rank 8) drawn from a
+# 32-client population, FedConfig(quarantine=True,
+# robust_agg="trimmed_mean"), PopulationRunner(shard_size=4,
+# max_resident_shards=2): 8 shards, 2 resident, so the store spills. The
+# plans of rounds 0-4 are pure in (config, round) and hold 6 drops, 3
+# stragglers due at rounds 2, 3 and 4, and a sign flip in round 1, a
+# scale in round 3, a NaN shard in round 4. Every slot trains, so the
+# launches per round are phase_train's (round 0, then round 1's for
+# rounds 1-4); the guard and the stale merge launch no kernel.
+# jacobi_eigh solves masked score Grams (a client of zero weight:
+# dropped, straggling or quarantined) in rounds 0, 2, 3 and 4.
+POP_CONFIG = dict(population=32, dropout_rate=0.25, straggler_rate=0.25,
+                  max_staleness=2, staleness_decay=0.5, seed=3,
+                  corrupt_rate=0.25)
+POP_ROUNDS, POP_SHARD, POP_RESIDENT, POP_SNAPSHOT_AFTER = 5, 4, 2, 3
+POP_FAULTS = {"dropped": 6, "straggling": 3, "due": [2, 3, 4],
+              "corrupt": {1: "sign_flip", 3: "scale", 4: "nan"}}
+POP_LAUNCHES = {r: EXPECTED_LAUNCHES[min(r, 1)] for r in range(POP_ROUNDS)}
+POP_MASKED_ROUNDS = (0, 2, 3, 4)
+# The population rounds' own bound on D, set between the sound reading
+# (0.123) and the smaller control (0.285) of the runs in PERF.md: losing
+# round 0's update moves D less over five rounds than over two. The run
+# fails unless both of its controls exceed it. Its loss control: round 1's first-step
+# losses at the initial weights, i.e. with round 0's update lost.
+POP_DELTA_BOUND = 0.2
 
 
 def emit(obj) -> None:
@@ -1549,8 +1585,8 @@ def _train_setup(seed, method="fedgalore", **fed_kw):
     params = model_lib.init_params(cfg, seed=seed, device="cuda")
     task = seq_classification(n_examples=256, n_classes=4, seq_len=TRAIN_L,
                               vocab=cfg.vocab_size, seed=seed)
-    batcher = FederatedBatcher(task, n_clients=CLIENTS, batch_size=TRAIN_B,
-                               alpha=0.5, seed=seed)
+    batcher = FederatedBatcher(task, n_clients=CLIENTS,
+                               batch_size=TRAIN_B, alpha=0.5, seed=seed)
     engine = FedEngine(
         FedConfig(method=method, rank=TRAIN_R, lr=TRAIN_LR,
                   local_steps=LOCAL_STEPS, seed=seed, lora_scale=LORA_SCALE,
@@ -1773,6 +1809,29 @@ def svd_stack_check(seed, card, batch=16):
               "from torch.linalg.svd of each matrix alone")
 
 
+def _second_round(engine, batcher, card):
+    """A dense-client method's second round: the first one's stacked
+    client copies must not stay held into it (no population runner asked
+    for them), so its peak is the first round's."""
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    batches = batcher.round_batches(LOCAL_STEPS)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    losses = engine.run_round(batches)["local_loss"].cpu()
+    torch.cuda.synchronize()
+    row = {"phase": "train_methods", "method": engine.cfg.method,
+           "round": 1, "card": card, "round_s": time.perf_counter() - t0,
+           "held_after_round0_gib": held,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": sum(_launch_counts().values()),
+           "losses": losses.tolist()}
+    emit(row)
+    check(bool(torch.isfinite(losses).all()) and row["launches"] == 0,
+          f"{engine.cfg.method} round 1: {row}")
+
+
 def phase_train_methods(seed, card, checked):
     """The LoRA and dense methods and the eager oracle round at full
     width (see LORA_METHODS / EAGER_LAUNCHES). Returns the eager rounds'
@@ -1810,7 +1869,10 @@ def phase_train_methods(seed, card, checked):
               f"{method}: non-finite global leaves after a round")
         check(sum(launches.values()) == 0,
               f"{method} launched kernels it does not run: {launches}")
-        del engine, leaves
+        del leaves
+        if method == "fedavg_full":
+            _second_round(engine, batcher, card)
+        del engine
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cfg, engine, rounds, snaps, seen, peak = _run_train(
@@ -1962,6 +2024,337 @@ def phase_train_parity(seed, rounds, snaps, phase="train_parity", **fed_kw):
           f"above the bound {TRAIN_DELTA_BOUND}: the check cannot see it")
     del engine
     torch.cuda.empty_cache()
+    return controls
+
+
+def phase_population_honest(seed, card, rounds, snaps):
+    """phase_train's two rounds again with quarantine on and no attack: an
+    honest cohort through the guard must give phase_train's leaves and
+    losses bit for bit. Where it does not, two unguarded runs show
+    whether the card repeats the round at all."""
+    _, engine, g_rounds, g_snaps, _, _ = _run_train(seed, plain=False,
+                                                    quarantine=True)
+    quarantined = int(engine.quarantined.sum())
+    del engine
+
+    def same(a_rounds, a_snaps):
+        return (all(torch.equal(x["losses"], y["losses"])
+                    for x, y in zip(a_rounds, rounds))
+                and all(torch.equal(x, y) for k in ("round0", "final")
+                        for x, y in zip(a_snaps[k], snaps[k])))
+
+    row = {"phase": "population_honest", "card": card, "rounds": 2,
+           "guarded_equals_plain": same(g_rounds, g_snaps),
+           "quarantined_last_round": quarantined}
+    del g_snaps
+    if not row["guarded_equals_plain"]:
+        _, engine, u_rounds, u_snaps, _, _ = _run_train(seed, plain=False)
+        del engine
+        row["unguarded_repeats"] = same(u_rounds, u_snaps)
+        del u_snaps
+    torch.cuda.empty_cache()
+    emit(row)
+    check(row["guarded_equals_plain"] or not row["unguarded_repeats"],
+          "an honest guarded round differs from the plain one while the "
+          "plain one repeats bit for bit: the guard changed the round")
+    return row
+
+
+def _pop_plans():
+    """The five rounds' plans, checked against POP_FAULTS before any run."""
+    from repro_torch.core import population as pop
+    pcfg = pop.ParticipationConfig(**POP_CONFIG)
+    plans = [pop.sample_cohort(pcfg, CLIENTS, r) for r in range(POP_ROUNDS)]
+    due = sorted(p.round_idx + int(d) for p in plans for d in p.delays
+                 if d > 0)
+    corrupt = {p.round_idx: pcfg.corrupt_modes[int(c) - 1]
+               for p in plans for c in p.corrupt if c}
+    got = {"dropped": int(sum((p.delays < 0).sum() for p in plans)),
+           "straggling": int(sum((p.delays > 0).sum() for p in plans)),
+           "due": due, "corrupt": corrupt}
+    check(got == POP_FAULTS, f"population plans hold {got}, stated "
+          f"{POP_FAULTS}")
+    return pcfg, plans
+
+
+def _pop_eigh_check(gen):
+    """jacobi_eigh on the path's masked score Grams: one bucket's (4, 24,
+    C, 8, 8) stack with two clients masked out, against its plain version
+    through ``ops.batched_small_eigh``."""
+    from repro_torch.kernels import ops
+    a = _spd_case(gen, (4, 24, CLIENTS), TRAIN_R)
+    mask = torch.tensor([True, False, True, False], device="cuda").expand(
+        4, 24, CLIENTS)
+    lam, vec = ops.batched_small_eigh(a, mask=mask)
+    torch.cuda.synchronize()
+    with ops.plain_kernels():
+        lam_p, vec_p = ops.batched_small_eigh(a, mask=mask)
+    scale = lam_p.abs().max().item()
+    err = (lam - lam_p).abs().max().item()
+    recon = ((vec * lam[..., None, :]) @ vec.mT - (vec_p * lam_p[
+        ..., None, :]) @ vec_p.mT).abs().max().item() / max(scale, 1e-30)
+    tol = 1e-5 * TRAIN_R
+    emit({"phase": "population_kernel_check", "kernel": "jacobi_eigh",
+          "a": list(a.shape), "masked_clients": [1, 3],
+          "max_abs_err": err, "rel_recon": recon, "tol": tol})
+    check(err <= tol * scale and recon <= tol
+          and bool((lam[:, :, 1] == 0).all()),
+          f"masked jacobi_eigh disagrees: lam {err} recon {recon}")
+    return err
+
+
+def _first_step_losses(engine, leaves, batches):
+    """Each client's loss on its first local batch at the global leaves
+    ``leaves`` (every kernel's plain version)."""
+    from repro_torch.kernels import ops
+    from repro_torch.utils import tree
+    treedef = tree.tree_flatten(engine.global_trainable)[1]
+    engine.global_trainable = treedef.unflatten(list(leaves))
+    with ops.plain_kernels():
+        return torch.tensor([engine.evaluate(tree.tree_map(
+            lambda x: x[c, 0], batches)) for c in range(CLIENTS)])
+
+
+def _run_population(seed, pcfg, batches_for, store_dir, plain=False,
+                    snapshot_dir=None, resume_dir=None):
+    """POP_ROUNDS rounds of a PopulationRunner at full width (kernels, or
+    every kernel's plain version). With ``snapshot_dir`` it snapshots
+    after round POP_SNAPSHOT_AFTER; a fresh engine and runner over a copy
+    of the store (``resume_dir``) restore it and run the last round too.
+    Returns per-round rows, the global leaves (init, after round 0, before
+    the last round, final), the kernels' shapes, the resume row, the peak
+    GiB and round 1's first-step losses at the leaves after round 0 and
+    at the initial ones (the loss control)."""
+    from repro_torch.core.population import PopulationRunner, sample_cohort
+    from repro_torch.kernels import ops
+    from repro_torch.utils import tree
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, engine, _ = _train_setup(seed, quarantine=True,
+                                robust_agg="trimmed_mean")
+    runner = PopulationRunner(engine, batches_for, cohort=CLIENTS, pcfg=pcfg,
+                              store_dir=store_dir, shard_size=POP_SHARD,
+                              max_resident_shards=POP_RESIDENT,
+                              snapshot_dir=snapshot_dir)
+    guard_s = _time_method(engine, "_apply_guard")
+    _time_method(engine, "_aggregate_factored", guard_s)
+    _time_method(engine, "_sync_states", guard_s)
+    merge_s = _time_method(runner, "_merge_due")
+
+    def snap():
+        return [x.detach().clone()
+                for x in tree.tree_leaves(engine.global_trainable)]
+
+    def one_round(r):
+        torch.cuda.synchronize()
+        _zero_counts()
+        guard_s.clear()
+        merge_s.clear()
+        t0 = time.perf_counter()
+        if plain:
+            with ops.plain_kernels():
+                rec = runner.run_round()
+        else:
+            rec = runner.run_round()
+        torch.cuda.synchronize()
+        hist = runner.history[-1]
+        return {"round": r, "round_s": time.perf_counter() - t0,
+                "guard_s": sum(guard_s), "merge_s": sum(merge_s),
+                "launches": _launch_counts(), "routes": _route_counts(),
+                **{k: hist[k] for k in ("participants", "dropped",
+                                        "straggling", "buffered",
+                                        "corrupted", "stale_merged",
+                                        "stale_evicted")},
+                "quarantined": [int(i) for i in
+                                np.nonzero(rec["quarantined"])[0]],
+                "masked": bool(rec["plan"].mask.sum() < CLIENTS
+                               or rec["quarantined"].any()),
+                "mean_final_loss": hist["mean_final_loss"],
+                "moment_divergence": hist["moment_divergence"],
+                "stale_weight_err": hist["stale_weight_err"],
+                "losses": rec["local_loss"].cpu(),
+                "spills": runner.store.spills, "loads": runner.store.loads,
+                "resident_mib": runner.store.resident_bytes() / 2 ** 20}
+
+    snaps = {"init": snap()}
+    rows, resume = [], None
+    with ShapeLog(TRAIN_LOG) as log:
+        for r in range(POP_ROUNDS):
+            if r == POP_SNAPSHOT_AFTER + 1 and snapshot_dir is not None:
+                snaps["before_last"] = snap()
+                resume = _snapshot_and_restore(seed, runner, pcfg,
+                                               batches_for, store_dir,
+                                               resume_dir, snapshot_dir)
+            rows.append(one_round(r))
+            if r == 0:
+                snaps["round0"] = snap()
+    snaps["final"] = snap()
+    if resume is not None:
+        # the resumed runner ran the last round before this one did
+        want = rows[-1]
+        for k, rtol in (("mean_final_loss", 1e-6),
+                        ("moment_divergence", 1e-5)):
+            resume[k + "_rel"] = abs(resume[k] - want[k]) / max(
+                abs(want[k]), 1e-30)
+            check(resume[k + "_rel"] <= rtol, f"resumed run: {k} "
+                  f"{resume[k]} against {want[k]} (rtol {rtol})")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    batches1 = batches_for(sample_cohort(pcfg, CLIENTS, 1).clients, 1)
+    first = {k: _first_step_losses(engine, snaps[k], batches1)
+             for k in ("round0", "init")}
+    del runner, engine
+    torch.cuda.empty_cache()
+    return rows, snaps, log.seen, resume, peak, first
+
+
+def _snapshot_and_restore(seed, runner, pcfg, batches_for, store_dir,
+                          resume_dir, snapshot_dir):
+    """Snapshot ``runner`` (timed, with its bytes), copy its store as a
+    killed run leaves it on disk, restore a fresh engine and runner from
+    them and run the next round there. Returns that round's record."""
+    from repro_torch.core.population import PopulationRunner
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = runner.snapshot()
+    snap_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(snapshot_dir, f))
+                 for f in os.listdir(snapshot_dir)
+                 if f.startswith("fed_%08d" % step))
+    shutil.copytree(store_dir, resume_dir)
+    _, engine, _ = _train_setup(seed, quarantine=True,
+                                robust_agg="trimmed_mean")
+    fresh = PopulationRunner(engine, batches_for, cohort=CLIENTS, pcfg=pcfg,
+                             store_dir=resume_dir, shard_size=POP_SHARD,
+                             max_resident_shards=POP_RESIDENT,
+                             snapshot_dir=snapshot_dir)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    check(fresh.restore() == step, "restore found another snapshot")
+    restore_s = time.perf_counter() - t0
+    fresh.run_round()
+    hist = fresh.history[-1]
+    out = {"step": step, "snapshot_s": snap_s, "snapshot_bytes": nbytes,
+           "restore_s": restore_s,
+           "mean_final_loss": hist["mean_final_loss"],
+           "moment_divergence": hist["moment_divergence"]}
+    del fresh, engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_population(seed, card, checked, gen, train_controls):
+    """Population and robustness at full width (POP_* above): the kernel
+    run with its snapshot, kill and resume, then the plain run; records
+    held to each other, launches per round to POP_LAUNCHES."""
+    from repro_torch.data import FederatedBatcher, seq_classification
+    from repro_torch.configs import get_config
+    pcfg, plans = _pop_plans()
+    eigh_err = _pop_eigh_check(gen)
+    cfg = get_config("qwen1.5-0.5b")
+    task = seq_classification(n_examples=256, n_classes=4, seq_len=TRAIN_L,
+                              vocab=cfg.vocab_size, seed=seed)
+    batcher = FederatedBatcher(task, n_clients=POP_CONFIG["population"],
+                               batch_size=TRAIN_B, alpha=0.5, seed=seed)
+    drawn = {}
+
+    def batches_for(ids, r):
+        # drawn once per round, in round order, and shared by every run
+        if r not in drawn:
+            drawn[r] = batcher.round_batches(LOCAL_STEPS,
+                                             clients=[int(i) for i in ids])
+        return drawn[r]
+
+    with tempfile.TemporaryDirectory(prefix="population_") as tmp:
+        rows, snaps, seen, resume, peak, _ = _run_population(
+            seed, pcfg, batches_for, os.path.join(tmp, "store"),
+            snapshot_dir=os.path.join(tmp, "snapshots"),
+            resume_dir=os.path.join(tmp, "store_resume"))
+        plain_rows, plain, _, _, _, first = _run_population(
+            seed, pcfg, batches_for, os.path.join(tmp, "store_plain"),
+            plain=True)
+    for name, keys in seen.items():
+        check(keys <= checked[name][1], f"the population path launched "
+              f"{name} at shapes the checks did not cover: "
+              f"{sorted(keys - checked[name][1])}")
+    ints = ("participants", "dropped", "straggling", "buffered", "corrupted",
+            "stale_merged", "stale_evicted", "quarantined", "masked")
+    for r, (a, b) in enumerate(zip(rows, plain_rows)):
+        check({k: a[k] for k in ints} == {k: b[k] for k in ints},
+              f"population round {r}: records differ: "
+              f"{ {k: (a[k], b[k]) for k in ints if a[k] != b[k]} }")
+        check(sum(b["launches"].values()) == 0,
+              f"plain population run launched kernels: {b['launches']}")
+        want = {name: POP_LAUNCHES[r].get(name, 0) for name in a["launches"]}
+        check(a["launches"] == want, f"population round {r}: launches "
+              f"{a['launches']}, expected {want}")
+        check(a["masked"] == (r in POP_MASKED_ROUNDS),
+              f"population round {r}: masked {a['masked']}")
+        check(tuple(a["losses"].shape) == (CLIENTS, LOCAL_STEPS)
+              and bool(torch.isfinite(a["losses"]).all()),
+              f"population round {r}: losses {a['losses']}")
+        emit({"phase": "population", "card": card,
+              **{k: v for k, v in a.items() if k != "losses"},
+              "losses": a["losses"].tolist(),
+              "plain_round_s": b["round_s"]})
+    plans_bad = {p.round_idx: [int(i) for i in np.nonzero(p.corrupt)[0]]
+                 for p in plans}
+    for r, mode in POP_FAULTS["corrupt"].items():
+        if mode in ("nan", "scale"):
+            check(rows[r]["quarantined"] == plans_bad[r]
+                  and plain_rows[r]["quarantined"] == plans_bad[r],
+                  f"round {r}: the {mode} client {plans_bad[r]} was not "
+                  f"quarantined ({rows[r]['quarantined']}, plain "
+                  f"{plain_rows[r]['quarantined']})")
+    check(all(bool(torch.isfinite(x.float()).all()) for x in snaps["final"]),
+          "non-finite global leaves after the population rounds")
+    loss_diff = max((a["losses"] - b["losses"]).abs().max().item()
+                    for a, b in zip(rows, plain_rows))
+    init, want = plain["init"], plain["final"]
+    check(all(torch.equal(a, b) for a, b in zip(snaps["init"], init)),
+          "the population runs did not start from the same weights")
+    delta_rel, delta_max_rel = _change_rel(snaps["final"], want, init)
+    no_round0 = [f.float() - (r0.float() - i.float()) for f, r0, i in
+                 zip(snaps["final"], snaps["round0"], init)]
+    controls = {"last_round_dropped": _change_rel(snaps["before_last"], want,
+                                                  init)[0],
+                "round0_dropped": _change_rel(no_round0, want, init)[0]}
+    # round 1's first local losses against the plain run's: at the leaves
+    # after round 0 (the merged forward's rounding) and at the initial ones
+    plain1 = plain_rows[1]["losses"][:, 0]
+    loss_controls = {k: (first[k] - plain1).abs().max().item()
+                     for k in ("round0", "init")}
+    launches = {name: sum(r["launches"][name] for r in rows)
+                for name in ("lowrank_linear", "galore_precond_step",
+                             "jacobi_eigh")}
+    launches["jacobi_eigh_masked"] = sum(
+        r["launches"]["jacobi_eigh"] for r in rows if r["masked"])
+    row = {"phase": "population_parity", "card": card,
+           "rounds": POP_ROUNDS, "max_abs_loss_diff": loss_diff,
+           "loss_bound": TRAIN_LOSS_BOUND,
+           "loss_controls": {"sound": loss_controls["round0"],
+                             "round0_dropped": loss_controls["init"]},
+           "delta_rel_fro": delta_rel,
+           "delta_rel_max": delta_max_rel, "delta_bound": POP_DELTA_BOUND,
+           "controls": controls, "train_parity_controls": train_controls,
+           "resume": resume, "peak_gib": peak, "launches": launches,
+           "masked_eigh_max_abs_err": eigh_err,
+           "kernel_shapes": {k: sorted(v) for k, v in seen.items()}}
+    emit(row)
+    check(loss_diff <= TRAIN_LOSS_BOUND, f"population losses differ by "
+          f"{loss_diff} > {TRAIN_LOSS_BOUND}")
+    check(delta_rel <= POP_DELTA_BOUND, f"the population rounds' change "
+          f"of the global leaves differs by {delta_rel} > "
+          f"{POP_DELTA_BOUND}")
+    check(min(controls.values()) > POP_DELTA_BOUND,
+          f"a control with a round's update dropped reads {controls}, not "
+          f"above the bound {POP_DELTA_BOUND}: the check cannot see it")
+    check(loss_controls["init"] > TRAIN_LOSS_BOUND,
+          f"round 1's losses with round 0's update lost differ by "
+          f"{loss_controls['init']}, not above the loss bound "
+          f"{TRAIN_LOSS_BOUND}: the check cannot see it")
+    del snaps, plain
+    torch.cuda.empty_cache()
+    return rows, launches
 
 
 def _bound(nbytes, flops_by_peak):
@@ -2338,11 +2731,16 @@ def main(argv=None) -> int:
     train_checked = phase_train_kernel_checks(gen, args.seed)
     rounds, snaps, train_launches = phase_train(args.seed, card,
                                                 train_checked)
-    phase_train_parity(args.seed, rounds, snaps)
+    train_controls = phase_train_parity(args.seed, rounds, snaps)
+    phase_population_honest(args.seed, card, rounds, snaps)
     del snaps
     torch.cuda.empty_cache()
     svd_stack_check(args.seed, card)
     eager_rounds = phase_train_methods(args.seed, card, train_checked)
+    torch.cuda.empty_cache()
+    pop_rounds, pop_launches = phase_population(args.seed, card,
+                                                train_checked, gen,
+                                                train_controls)
     torch.cuda.empty_cache()
 
     # serving path, starcoder2-7b: 8 adapters, then one long prefill on the
@@ -2452,22 +2850,28 @@ def main(argv=None) -> int:
             kernels[-1]["profiled_ms"] = agg["profiled_ms"]
         if name in ("lowrank_linear", "jacobi_eigh", "galore_precond_step"):
             kernels[-1]["launches_by_route"] = {
-                k: sum(r["routes"][name][k] for r in rounds + eager_rounds)
+                k: sum(r["routes"][name][k]
+                       for r in rounds + eager_rounds + pop_rounds)
                 for k in rounds[0]["routes"][name]}
-        if name in ("jacobi_eigh", "galore_precond_step"):
             eager = sum(r["launches"][name] for r in eager_rounds)
-            kernels[-1]["launches"] += eager
+            kernels[-1]["launches"] += eager + pop_launches[name]
             kernels[-1]["launches_by_path"] = {
-                "train": train_launches[name], "train_methods": eager}
+                "train": train_launches[name], "train_methods": eager,
+                "population": pop_launches[name]}
+        if name == "jacobi_eigh":
+            kernels[-1]["launches_by_path"]["population_masked"] = \
+                pop_launches["jacobi_eigh_masked"]
         if name == "galore_precond_step":
-            # phase train launches PRECOND_UT only, the eager rounds
-            # PRECOND_U only (both checked against the shape logs)
+            # phases train and population launch PRECOND_UT only (their
+            # factored round 0), the eager rounds PRECOND_U only (all
+            # checked against the shape logs)
             kernels[-1]["by_mode"] = {
                 mode: {"launches": n, **_sum_rows(
                     [r for r in train_rows
                      if r.get("project_back") == back], name)}
                 for mode, back, n in (
-                    ("PRECOND_UT", False, train_launches[name]),
+                    ("PRECOND_UT", False,
+                     train_launches[name] + pop_launches[name]),
                     ("PRECOND_U", True, eager))}
     admit = next(r for r in scan_rows if r["shape"] == "admission prefill")
     kernels.append({

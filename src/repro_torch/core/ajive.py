@@ -33,8 +33,9 @@ reference does — ``v_stack (C, *batch, m, r)`` right or ``(C, *batch, r,
 n)`` left — and treat any further leading dims as a batch where the
 reference vmaps (stacked layers, stacked buckets), so a whole bucket's
 Phase-1 Grams go through one eigensolve. Internally the client axis sits
-at -3. The robust reductions are not ported (ROADMAP Queue 1 item 10
-carries the robust modes).
+at -3. ``robust`` (the guarded round) reduces the per-client joint
+components with ``aggregation.robust_factored_reduce``, each batch entry
+on its own.
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from . import aggregation as agg
 from . import projector as proj
 from ..kernels import ops as kernel_ops
 from ..utils import prng
@@ -215,16 +217,9 @@ def ajive_sync(views, rank: int, weights=None) -> torch.Tensor:
     return torch.einsum("k,k...->...", w / torch.sum(w), joint)
 
 
-def _no_robust(robust: str) -> None:
-    if robust != "none":
-        raise NotImplementedError(
-            f"robust={robust!r}: robust reductions are not ported yet "
-            "(ROADMAP Queue 1 item 10: population and robustness)")
-
-
 def _topk_eig_desc(sym, k: int):
     """Top-k eigenpairs of small symmetric PSD matrices, descending."""
-    lam, vec = torch.linalg.eigh(sym)
+    lam, vec = kernel_ops.nan_safe_eigh(sym)
     lam = torch.clamp(torch.flip(lam, [-1]), min=0.0)
     vec = torch.flip(vec, [-1])
     return lam[..., :k], vec[..., :k]
@@ -323,17 +318,31 @@ def _batch_mask(mask, gram):
     return None if mask is None else mask.expand(gram.shape[:-2])
 
 
+def _joint_mean(joint, weights, robust: str, trim: float, iters: int,
+                tol: float):
+    """The weighted (or robust) mean over the client axis of the (*B, C,
+    ·, ·) per-client joint components."""
+    w = normalize_weights(weights, joint.shape[-3], device=joint.device)
+    if robust != "none":
+        return agg.robust_factored_reduce(
+            joint.movedim(-3, 0), w, robust, trim=trim, iters=iters, tol=tol,
+            batch_dims=joint.ndim - 3)
+    return torch.einsum("c,...cij->...ij", w, joint)
+
+
 def ajive_sync_factored(v_stack, rank: int, weights=None,
                         side: str = "right",
                         exclude_zero_weights: bool = False,
-                        robust: str = "none", **_robust_kw):
+                        robust: str = "none", trim: float = 0.2,
+                        iters: int = 8, tol: float = 1e-6):
     """Server-side second-moment sync on projected moments (Alg. 1 l.12)
     for a shared orthonormal basis. ``v_stack`` (C, *batch, m, r) right |
     (C, *batch, r, n) left. Returns the weighted joint estimate in
-    projected shape, (*batch, m, r) | (*batch, r, n)."""
-    _no_robust(robust)
+    projected shape, (*batch, m, r) | (*batch, r, n). ``robust`` replaces
+    the final weighted mean over the per-client joint components with the
+    matching ``aggregation.robust_factored_reduce`` mode, each batch entry
+    on its own; 'none' is bitwise the weighted mean."""
     a = v_stack.float().movedim(0, -3)             # (*B, C, m, r)|(*B, C, r, n)
-    c_views = a.shape[-3]
     r = a.shape[-1] if side == "right" else a.shape[-2]
     k = min(rank, r)
     mask = _participation_mask(weights, exclude_zero_weights, a.device)
@@ -355,24 +364,24 @@ def ajive_sync_factored(v_stack, rank: int, weights=None,
         q = _joint_basis(wv, k)                            # (*B, r, k)
         joint = torch.einsum("...rj,...cjn->...crn", q,
                              torch.einsum("...rj,...crn->...cjn", q, a))
-    w = normalize_weights(weights, c_views, device=a.device)
-    return torch.einsum("c,...cij->...ij", w, joint)
+    return _joint_mean(joint, weights, robust, trim, iters, tol)
 
 
 def ajive_sync_hetero_factored(v_stack, b_stack, rank: int, weights=None,
                                side: str = "right",
                                exclude_zero_weights: bool = False,
-                               robust: str = "none", **_robust_kw):
+                               robust: str = "none", trim: float = 0.2,
+                               iters: int = 8, tol: float = 1e-6):
     """Factored AJIVE 𝒮 for heterogeneous client bases (the adaptive round
     0): client i lifted its ṽ with its own orthonormal basis ``Q_i``; the
     result is expressed on the client-0 basis. Right: Phases 1–2 are
     basis-free and the r×r transfer ``T_i = Q_iᵀ Q_0`` enters Phase 3;
     left: the scores lift as ``Q_i u^i`` and Phase 3 is
-    ``(Q_0ᵀ U)(Uᵀ Q_i) ṽ^i``. ``b_stack`` (C, *batch, dim, r)."""
-    _no_robust(robust)
+    ``(Q_0ᵀ U)(Uᵀ Q_i) ṽ^i``. ``b_stack`` (C, *batch, dim, r). The
+    per-client joint components are already on the client-0 basis, so
+    ``robust`` reduces them directly, as in :func:`ajive_sync_factored`."""
     a = v_stack.float().movedim(0, -3)
     b = b_stack.float().movedim(0, -3)             # (*B, C, dim, r)
-    c_views = a.shape[-3]
     r = a.shape[-1] if side == "right" else a.shape[-2]
     k = min(rank, r)
     mask = _participation_mask(weights, exclude_zero_weights, a.device)
@@ -397,5 +406,4 @@ def ajive_sync_hetero_factored(v_stack, b_stack, rank: int, weights=None,
         t0 = torch.einsum("...dr,...dk->...rk", b0, u_joint)
         ti = torch.einsum("...cdr,...dk->...crk", b, u_joint)
         joint = torch.einsum("...rk,...csk,...csn->...crn", t0, ti, a)
-    w = normalize_weights(weights, c_views, device=a.device)
-    return torch.einsum("c,...cij->...ij", w, joint)
+    return _joint_mean(joint, weights, robust, trim, iters, tol)

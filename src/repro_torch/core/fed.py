@@ -58,9 +58,17 @@ The reference's ``jit``/``vmap``/``scan``/donation become eager loops, so
 its execution knobs that only reschedule the same arithmetic
 (``client_chunk``, ``pipeline_sync``, ``bucketed_sync``, donation, the
 scan over rounds) have no counterpart; the round counter and step counts
-are host ints, and the round-0 choice is Python control flow. Not ported:
-participation masks, attacks, quarantine and robust aggregation (ROADMAP
-Queue 1 item 10).
+are host ints, and the round-0 choice is Python control flow.
+
+Participation and defense (:meth:`FedEngine.run_round`'s ``mask`` and
+``attack``): a masked round keeps every cohort slot training, gives
+masked-out clients zero renormalized weight in 𝒜 and excludes them from
+the AJIVE joint basis in 𝒮. The guarded round (an attack, or a
+``quarantine`` / ``robust_agg`` config; factored clients only) multiplies
+each client's uplink by its attack entry, screens it
+(:meth:`FedEngine._apply_guard`), and runs robust 𝒜 and exclusion-aware
+robust 𝒮. A full mask and an all-ones attack take the unmasked path, and
+an honest cohort through the guard is bitwise the unguarded round.
 """
 from __future__ import annotations
 
@@ -75,6 +83,7 @@ from . import galore as gal
 from . import lora as lora_lib
 from . import projector as proj
 from . import state_sync as sync_lib
+from .population import ParticipationConfig
 from .. import optim as optim_lib
 from ..utils import prng, tree
 
@@ -121,8 +130,14 @@ class FedConfig:
     ``factored_clients`` lets the GaLore methods keep rank-r client state;
     ``lift_free`` (with factored clients) reads target leaves lift-free
     after round 0, False keeps the transient-lift read in every round.
-    ``participation``, ``robust_agg`` and ``quarantine`` exist to refuse
-    what is not ported."""
+    ``participation`` is the population layer's plan config
+    (``core.population.PopulationRunner`` reads it; the engine consumes
+    only the per-round masks). ``quarantine`` screens factored uploads
+    (non-finite, or norm above ``quarantine_zmax`` × the weighted median)
+    and folds failures into the mask path; ``robust_agg`` swaps the
+    weighted means of 𝒜 and 𝒮 for 'norm_clip', 'trimmed_mean' (trim
+    ``robust_trim`` per tail) or 'geomedian' (at most ``robust_iters``
+    Weiszfeld steps, early exit at ``robust_tol``)."""
     method: str = "fedgalore"
     rank: int = 8
     lora_scale: float = 2.0            # alpha / r
@@ -139,26 +154,21 @@ class FedConfig:
     fused_round: bool = True
     factored_clients: bool = True
     lift_free: bool = True
-    participation: Optional[Any] = None
+    participation: Optional[ParticipationConfig] = None
     robust_agg: str = "none"
     quarantine: bool = False
-
-
-_ITEM10 = "ROADMAP Queue 1 item 10: population and robustness"
+    quarantine_zmax: float = 6.0
+    robust_trim: float = 0.2
+    robust_iters: int = 8
+    robust_tol: float = 1e-6
 
 
 def _check_config(cfg: FedConfig) -> None:
     if cfg.method not in METHODS:
         raise ValueError(f"unknown method {cfg.method!r}")
-    if cfg.participation is not None:
-        raise NotImplementedError(f"participation is not ported yet "
-                                  f"({_ITEM10})")
     if cfg.robust_agg not in agg.ROBUST_MODES:
         raise ValueError(f"robust_agg={cfg.robust_agg!r} not in "
                          f"{agg.ROBUST_MODES}")
-    if cfg.quarantine or cfg.robust_agg != "none":
-        raise NotImplementedError(f"quarantine/robust_agg are not ported yet "
-                                  f"({_ITEM10})")
 
 
 # ------------------------------------------------------------ trainables ----
@@ -253,10 +263,23 @@ class FedEngine:
             and gal.all_blocks_projected(gal.galore_state_of(
                 self._fresh_opt)))
         self._lift_free = bool(cfg.lift_free) and self._factored
+        self._guard_cfg = bool(cfg.quarantine) or cfg.robust_agg != "none"
+        if self._guard_cfg and not self._factored:
+            raise ValueError(
+                "quarantine/robust_agg need the factored client model "
+                "(GaLore methods with factored_clients=True) — the screen "
+                "and the robust reductions run on rank-r factored stacks")
         self.round_idx = 0
         self.synced_v = None        # projected ṽ init from 𝒮
-        self._client_state = None   # (C, ·) factored accumulators, last round
-        self._client_opt = None     # (C, ·) optimizer states, last round
+        # The last round's retained client buffers: (C, ·) factored
+        # accumulators or dense trainables, and the optimizer states. A
+        # dense-client round keeps its stacked trainables (and GaLore
+        # states) only with ``retain_clients``, which the population
+        # layer sets for its harvest.
+        self._client_state = None
+        self._client_opt = None
+        self.retain_clients = False
+        self.quarantined = None     # (C,) bool: the last guard's verdict
 
     # ----------------------------------------------------------- optimizer --
     def _make_tx(self):
@@ -368,31 +391,91 @@ class FedEngine:
         return dl, st, torch.stack(losses), scale
 
     # ------------------------------------------------------------ a round ---
+    def _normalize_weights(self, weights, k_clients):
+        return sync_lib.normalize_weights(weights, k_clients,
+                                          device=self.device)
+
+    def _masked_weights(self, weights, mask, k_clients):
+        """A masked round's weights: the base weights with masked-out
+        clients zeroed, renormalized over the participants on the host,
+        as the reference does."""
+        w = self._normalize_weights(weights, k_clients).cpu().numpy()
+        wm = np.where(np.asarray(mask, bool), w, 0.0)
+        s = float(wm.sum())
+        if s <= 0.0:
+            raise ValueError("participation mask drops every client in the "
+                             "cohort — a round needs >= 1 on-time participant")
+        return torch.as_tensor(wm / s, dtype=torch.float32,
+                               device=self.device)
+
+    @staticmethod
+    def _canon_mask(mask, k_clients):
+        """None or an all-true mask is None: full participation takes the
+        unmasked path."""
+        if mask is None:
+            return None
+        m = np.asarray(mask, bool).reshape(-1)
+        if m.shape != (k_clients,):
+            raise ValueError(f"mask shape {m.shape} != cohort ({k_clients},)")
+        return None if m.all() else m
+
+    @staticmethod
+    def _canon_attack(attack, k_clients):
+        """None or an all-ones attack is None: an adversary-free round
+        never takes the guarded path on its own."""
+        if attack is None:
+            return None
+        a = np.asarray(attack, np.float32).reshape(-1)
+        if a.shape != (k_clients,):
+            raise ValueError(f"attack shape {a.shape} != cohort "
+                             f"({k_clients},)")
+        return None if np.all(a == 1.0) else a
+
     def run_round(self, client_batches: PyTree, weights=None, mask=None,
                   attack=None):
         """client_batches: a tree of arrays with leading (K clients, T
         steps, ...) axes. Returns ``{"local_loss": (K, T) tensor,
         "mean_final_loss": float}`` and advances the engine's global
         state. ``fused_round=False`` or ``factored_sync=False`` runs the
-        eager oracle round."""
-        if mask is not None or attack is not None:
-            raise NotImplementedError("participation masks and attack "
-                                      f"injection are not ported yet "
-                                      f"({_ITEM10})")
+        eager oracle round.
+
+        ``mask`` (bool (K,)) marks the on-time participants: masked-out
+        clients keep their slot and train, but carry zero weight in 𝒜 and
+        are excluded from the AJIVE joint basis in 𝒮 (the eager round
+        masks the weights only). ``attack`` (float (K,)) multiplies each
+        client's factored uplink after the local phase (NaN corrupted
+        shard, -1 sign flip, s norm scale). Any attack, or a
+        ``quarantine`` / ``robust_agg`` config, takes the guarded round;
+        a full mask and an all-ones attack are no mask and no attack."""
         batches = _to_device(client_batches, self.device)
         k_clients = tree.tree_leaves(batches)[0].shape[0]
-        w = sync_lib.normalize_weights(weights, k_clients,
-                                       device=self.device)
+        mask = self._canon_mask(mask, k_clients)
+        attack = self._canon_attack(attack, k_clients)
+        guarded = self._guard_cfg or attack is not None
+        w = (self._normalize_weights(weights, k_clients) if mask is None
+             else self._masked_weights(weights, mask, k_clients))
         eager = not (self.cfg.fused_round and self.cfg.factored_sync)
+        if guarded and eager:
+            raise ValueError(
+                "quarantine/robust_agg/attack injection require the "
+                "fused factored round (fused_round + factored_sync)")
+        if guarded and not self._factored:
+            raise ValueError("the guarded round requires factored clients")
+        self.quarantined = None
+        exclude_zero = guarded or mask is not None
         if self._factored and not eager:
-            losses = self._run_round_factored(batches, w, k_clients)
+            losses = self._run_round_factored(batches, w, k_clients,
+                                              exclude_zero, guarded, attack)
         else:
-            losses = self._run_round_dense(batches, w, k_clients, eager)
+            losses = self._run_round_dense(batches, w, k_clients, eager,
+                                           exclude_zero)
         self.round_idx += 1
         return {"local_loss": losses,                      # (K, T)
                 "mean_final_loss": float(losses[:, -1].mean())}
 
-    def _run_round_factored(self, batches, w, k_clients):
+    def _run_round_factored(self, batches, w, k_clients,
+                            exclude_zero: bool = False,
+                            guarded: bool = False, attack=None):
         round_idx = self.round_idx
         st0 = self._init_state0(round_idx, self.synced_v)
         transient = not self._lift_free or (
@@ -404,52 +487,115 @@ class FedEngine:
         out_opt = gal.stack_opt_states([o[1] for o in outs])
         losses = torch.stack([o[2] for o in outs])
         scales = torch.stack([o[3] for o in outs])
+        del outs
+        robust = "none"
+        if guarded:
+            out_d, out_opt, scales, w = self._apply_guard(out_d, out_opt,
+                                                          scales, w, attack)
+            robust = self.cfg.robust_agg
         self.global_trainable = self._aggregate_factored(
-            self.global_trainable, out_d, out_opt, scales, w, round_idx)
+            self.global_trainable, out_d, out_opt, scales, w, round_idx,
+            robust)
         if self._method_syncs():
-            self.synced_v = self._sync_states(out_opt, w, round_idx)
+            self.synced_v = self._sync_states(out_opt, w, round_idx,
+                                              exclude_zero, robust)
         self._client_state, self._client_opt = out_d, out_opt
         return losses
 
-    def _run_round_dense(self, batches, w, k_clients, eager: bool):
+    @torch.no_grad()
+    def _apply_guard(self, out_d, out_opt, scales, w, attack):
+        """The defense gate between the local phase and 𝒜/𝒮.
+
+        1. Each client's uplink (accumulators and projected moments) is
+           multiplied by its ``attack`` entry.
+        2. With ``quarantine``, the screen
+           (``aggregation.screen_factored_clients``) folds failing clients
+           into the mask path: weights zeroed and renormalized, stacks and
+           scales sanitized by selection (0·NaN never reaches a
+           reduction), moments zeroed out of the AJIVE score Gram. An
+           all-pass verdict leaves every operand bitwise as it was.
+
+        Returns (out_d, out_opt, scales, w) and sets ``self.quarantined``.
+        """
+        tmap = tree.tree_map
+        g = gal.galore_state_of(out_opt)
+        v_tree = gal.extract_projected_v(g)
+        if attack is not None:
+            a = torch.as_tensor(attack, dtype=torch.float32,
+                                device=self.device)
+
+            def hit(x):
+                if x is None:
+                    return None
+                ab = a.reshape((-1,) + (1,) * (x.ndim - 1))
+                return (x.float() * ab).to(x.dtype)
+
+            out_d = tmap(hit, out_d)
+            v_tree = tmap(hit, v_tree, is_leaf=lambda x: x is None)
+        if self.cfg.quarantine:
+            keep = agg.screen_factored_clients(
+                out_d, v_tree, scales, w, zmax=self.cfg.quarantine_zmax)
+            out_d = agg.mask_client_rows(out_d, keep)
+            v_tree = agg.mask_client_rows(v_tree, keep)
+            scales = torch.where(keep, scales, 1.0)   # enters the sbar sum
+            w = agg.quarantine_weights(w, keep)
+            self.quarantined = ~keep
+        out_opt = gal.replace_galore_state(out_opt,
+                                           gal.with_projected_v(g, v_tree))
+        return out_d, out_opt, scales, w
+
+    def _run_round_dense(self, batches, w, k_clients, eager: bool,
+                         exclude_zero: bool = False):
         """Dense clients one after another from the round's InitState,
-        then 𝒜 on the stacked trainables and 𝒮 (eager or factored).
-        Only 𝒮 reads the optimizer states, so they are stacked only for
-        a method that syncs."""
+        then 𝒜 on the stacked trainables and 𝒮 (eager or factored;
+        ``exclude_zero`` drops zero-weight clients from the AJIVE joint
+        basis). With ``retain_clients`` the fused round keeps the stacked
+        trainables and, for GaLore methods, the stacked optimizer states
+        for the population layer's harvest; otherwise only what 𝒮 reads.
+        The last round's buffers are released before this one trains."""
         round_idx = self.round_idx
         st0 = self._init_state0(round_idx, self.synced_v)
         syncs = self._method_syncs()
+        retain = self.retain_clients and not eager
+        keep_opt = syncs or (retain
+                             and self.spec.optimizer == "galore_adamw")
+        self._client_state = self._client_opt = None
         trainables, opts, losses = [], [], []
         for c in range(k_clients):
             tr, st, loss = self._local_train_one(self.global_trainable, st0,
                                                  _index(batches, c))
             trainables.append(tr)
             losses.append(loss)
-            opts.append(st if syncs else None)
+            opts.append(st if keep_opt else None)
             del tr, st
         stacked = tree.tree_map(lambda *xs: torch.stack(xs), *trainables)
         del trainables
         self.global_trainable, self.frozen = self._aggregate_pure(
             stacked, w, self.frozen, round_idx)
+        self._client_state = stacked if retain else None
         del stacked
-        self._client_state = None
-        self._client_opt = gal.stack_opt_states(opts) if syncs else None
+        self._client_opt = gal.stack_opt_states(opts) if keep_opt else None
         if syncs:
             self.synced_v = (
                 self._sync_states_eager(self._client_opt, w, round_idx)
                 if eager else
-                self._sync_states(self._client_opt, w, round_idx))
+                self._sync_states(self._client_opt, w, round_idx,
+                                  exclude_zero))
         return torch.stack(losses)
 
     def run_rounds(self, round_batches: PyTree, weights=None, masks=None):
         """K rounds in order: round_batches has leading (K rounds, C
-        clients, T steps, ...) axes. Returns ``local_loss`` (K, C, T)."""
+        clients, T steps, ...) axes; ``masks`` (bool (K, C)) one
+        participation mask per round. Returns ``local_loss`` (K, C, T)."""
+        k_rounds, k_clients = tree.tree_leaves(round_batches)[0].shape[:2]
         if masks is not None:
-            raise NotImplementedError(f"participation masks are not ported "
-                                      f"yet ({_ITEM10})")
-        k_rounds = tree.tree_leaves(round_batches)[0].shape[0]
+            masks = np.asarray(masks, bool)
+            if masks.shape != (int(k_rounds), int(k_clients)):
+                raise ValueError(f"masks shape {masks.shape} != "
+                                 f"({k_rounds}, {k_clients})")
         losses = torch.stack([
-            self.run_round(_index(round_batches, r), weights)["local_loss"]
+            self.run_round(_index(round_batches, r), weights,
+                           None if masks is None else masks[r])["local_loss"]
             for r in range(int(k_rounds))])
         return {"local_loss": losses,
                 "mean_final_loss": float(losses[-1, :, -1].mean())}
@@ -463,18 +609,22 @@ class FedEngine:
 
     @torch.no_grad()
     def _aggregate_factored(self, global_trainable, out_deltas, out_opt,
-                            base_scales, w, round_idx):
+                            base_scales, w, round_idx, robust: str = "none"):
         """𝒜 for factored clients: ``(Σᵢ wᵢ sᵢ)·W + Σᵢ wᵢ lift(Rᵢ, Bᵢ)`` per
-        target leaf."""
+        target leaf; ``robust`` swaps the weighted mean over the factored
+        stacks for a robust reduction ('none' is exactly the plain
+        path)."""
         bases = gal.extract_bases(gal.galore_state_of(out_opt))
         hetero = self._round0_hetero(round_idx)
         sbar = torch.einsum("c,c->", w, base_scales.float())
+        c = self.cfg
 
         def one(w0, d_stack, b_stack):
             side = (proj.RIGHT if d_stack.shape[-1] == b_stack.shape[-1]
                     else proj.LEFT)
-            lifted = agg.robust_factored_lift(d_stack, b_stack, side, w,
-                                              "none", hetero=hetero)
+            lifted = agg.robust_factored_lift(
+                d_stack, b_stack, side, w, robust, hetero=hetero,
+                trim=c.robust_trim, iters=c.robust_iters, tol=c.robust_tol)
             return (sbar * w0.float() + lifted).to(w0.dtype)
 
         return tree.tree_map(one, global_trainable, out_deltas, bases)
@@ -548,20 +698,27 @@ class FedEngine:
         return rank, proj.RIGHT if v_stack.shape[-1] == rank else proj.LEFT
 
     @torch.no_grad()
-    def _sync_states(self, stacked_opt, w, round_idx):
+    def _sync_states(self, stacked_opt, w, round_idx,
+                     exclude_zero: bool = False, robust: str = "none"):
         """Factored 𝒮: shared-basis rounds sync on the projected ṽ
         directly; the adaptive round 0 runs the heterogeneous-basis sync
-        (r×r transfer Grams). One batched program per shape bucket."""
+        (r×r transfer Grams). One batched program per shape bucket.
+        ``exclude_zero`` (masked and guarded rounds) drops zero-weight
+        clients from the AJIVE joint basis; ``robust`` robustifies the
+        reductions over the moment stacks."""
         protocol = self.spec.state_sync
         hetero = self._round0_hetero(round_idx)
+        c = self.cfg
+        kw = dict(exclude_zero_weights=exclude_zero, robust=robust,
+                  trim=c.robust_trim, iters=c.robust_iters, tol=c.robust_tol)
 
-        def leaf_fn(v_stack, b_stack):
+        def leaf_fn(v_stack, b_stack, n_batch):
             rank, side = self._side(v_stack, b_stack)
             if hetero:
                 return sync_lib.sync_block_hetero_factored(
-                    protocol, v_stack, b_stack, side, w, rank)
+                    protocol, v_stack, b_stack, side, w, rank, **kw)
             return sync_lib.sync_block_synced_factored(
-                protocol, v_stack, side, w, rank)
+                protocol, v_stack, side, w, rank, batch_dims=n_batch, **kw)
 
         vs, bs, treedef = self._uplink(stacked_opt)
         return treedef.unflatten(sync_lib.map_sync_leaves(leaf_fn, vs, bs))
@@ -596,6 +753,40 @@ class FedEngine:
                                   for v, b in zip(vs, bs)])
 
     # ------------------------------------------------------------- helpers --
+    def _frozen_mutates(self) -> bool:
+        """Only the lift aggregations (FLoRA / FR-LoRA) write the frozen
+        base."""
+        return self.spec.aggregation in ("lift_merge", "lift_refac")
+
+    def _zero_synced_template(self):
+        """Zeros shaped like the synced ṽ tree."""
+        return tree.tree_map(
+            lambda x: None if x is None else torch.zeros_like(x),
+            gal.extract_projected_v(gal.galore_state_of(self._fresh_opt)),
+            is_leaf=lambda x: x is None)
+
+    def _ensure_client_buffers(self, k_clients: int):
+        """Allocate the retained client buffers before any round has (a
+        snapshot or restore of a fresh engine needs their layout): zeros
+        shaped like a round's outputs — factored (C, ·, r) accumulators or
+        dense (C, ·) trainables, and the stacked optimizer states."""
+        have = (self._client_state is not None
+                and tree.tree_leaves(self._client_state)[0].shape[0]
+                == k_clients)
+        if have:
+            return
+        st = gal.stack_opt_states([self._init_state0(0, None)] * k_clients)
+        self._client_opt = tree.tree_map(
+            lambda x: torch.zeros_like(x) if torch.is_tensor(x) else x, st)
+        if self._factored:
+            self._client_state = gal.zero_client_deltas(
+                gal.galore_state_of(self._client_opt))
+        else:
+            self._client_state = tree.tree_map(
+                lambda x: torch.zeros((k_clients,) + tuple(x.shape),
+                                      dtype=x.dtype, device=x.device),
+                self.global_trainable)
+
     def global_params(self) -> PyTree:
         if self.spec.trainable in ("dense", "galore"):
             return merge_dense(self.frozen, self.global_trainable)

@@ -19,8 +19,9 @@ differ. Shared-basis rounds sync directly on ṽ
 refreshed onto their own bases, closes the lift → sync →
 re-project-onto-client-0 round trip over r×r transfer Grams
 (:func:`sync_block_hetero_factored`). :func:`map_sync_leaves` runs one
-batched program per shape bucket. The robust reductions are not ported
-(ROADMAP Queue 1 item 10).
+batched program per shape bucket. ``robust`` (the guarded round) replaces
+the weighted means over the projected-moment stacks with the matching
+``aggregation.robust_factored_reduce`` mode.
 """
 from __future__ import annotations
 
@@ -28,11 +29,13 @@ from typing import Optional
 
 import torch
 
+from . import aggregation as agg
 from . import projector as proj
-from .ajive import (_inv_sqrt_rank_safe, _no_robust, ajive_sync,
+from .ajive import (_inv_sqrt_rank_safe, ajive_sync,
                     ajive_sync_factored, ajive_sync_hetero_factored,
                     normalize_weights)
 from .galore import bucket_by_shape
+from ..kernels.ops import nan_safe_eigh
 
 
 # ------------------------------------------------- dense (lifted) views ----
@@ -122,15 +125,24 @@ def sync_block(protocol: str, v_stack, old_basis, new_basis, side: str,
 def sync_block_synced_factored(protocol: str, v_stack, side: str,
                                weights=None, rank: Optional[int] = None,
                                exclude_zero_weights: bool = False,
-                               robust: str = "none", **robust_kw):
+                               robust: str = "none", trim: float = 0.2,
+                               iters: int = 8, tol: float = 1e-6,
+                               batch_dims: int = 0):
     """Run protocol 𝒮 on shared-basis projected moments ``v_stack`` (C,
     *batch, ·, ·): returns the synced state on the round-k basis, or None
     for 'none'. ``exclude_zero_weights`` drops zero-weight clients from
-    the AJIVE joint-basis estimate."""
-    _no_robust(robust)
+    the AJIVE joint-basis estimate. ``robust`` replaces the protocols'
+    weighted mean with the matching robust reduction ('none' is bitwise
+    the plain path); for avg/avg_svd a client's vector is the whole leaf
+    after its first ``batch_dims`` axes (a stacked shape bucket), as the
+    reference reduces a stacked scan-block leaf jointly."""
     if protocol == "none":
         return None
     if protocol in ("avg", "avg_svd"):
+        if robust != "none":
+            return agg.robust_factored_reduce(
+                v_stack, weights, robust, trim=trim, iters=iters, tol=tol,
+                batch_dims=batch_dims)
         w = normalize_weights(weights, v_stack.shape[0],
                               device=v_stack.device)
         return torch.einsum("c,c...->...", w, v_stack.float())
@@ -139,7 +151,9 @@ def sync_block_synced_factored(protocol: str, v_stack, side: str,
             v_stack.shape[-1] if side == proj.RIGHT else v_stack.shape[-2])
         return ajive_sync_factored(v_stack, rank=r, weights=weights,
                                    side=side,
-                                   exclude_zero_weights=exclude_zero_weights)
+                                   exclude_zero_weights=exclude_zero_weights,
+                                   robust=robust, trim=trim, iters=iters,
+                                   tol=tol)
     raise ValueError(protocol)
 
 
@@ -156,7 +170,7 @@ def _gram_orth(gram):
     """Rank-safe orthonormalization of a factor ``X`` from its Gram ``XᵀX``:
     (coeff, rfac) with ``Q = X @ coeff`` orthonormal (null directions
     zeroed) and ``X = Q @ rfac``."""
-    lam, vec = torch.linalg.eigh(gram)
+    lam, vec = nan_safe_eigh(gram)
     lam = torch.clamp(torch.flip(lam, [-1]), min=0.0)
     vec = torch.flip(vec, [-1])
     coeff = vec * _inv_sqrt_rank_safe(lam)[..., None, :]
@@ -197,12 +211,16 @@ def _hetero_avg_svd(v32, b32, w, rank: int, side: str):
 def sync_block_hetero_factored(protocol: str, v_stack, b_stack, side: str,
                                weights=None, rank: Optional[int] = None,
                                exclude_zero_weights: bool = False,
-                               robust: str = "none", **robust_kw):
+                               robust: str = "none", trim: float = 0.2,
+                               iters: int = 8, tol: float = 1e-6):
     """Factored 𝒮 for heterogeneous client bases (the adaptive round 0):
     ``v_stack`` (C, *batch, ·, ·), ``b_stack`` (C, *batch, dim, r). Returns
     the synced state in projected shape on the client-0 basis, or None for
-    'none'."""
-    _no_robust(robust)
+    'none'. ``robust`` avg/avg_svd re-base the stacks onto client 0's
+    coordinates and reduce them robustly (on rank-≤r rows the SVD
+    re-projection is the identity, so the two coincide), each batch entry
+    on its own as under the reference's vmap; AJIVE's joint components
+    are on client 0 already and reduce directly."""
     if protocol == "none":
         return None
     r = b_stack.shape[-1]
@@ -211,8 +229,14 @@ def sync_block_hetero_factored(protocol: str, v_stack, b_stack, side: str,
     if protocol == "ajive":
         return ajive_sync_hetero_factored(
             v_stack, b_stack, rank, weights, side,
-            exclude_zero_weights=exclude_zero_weights)
+            exclude_zero_weights=exclude_zero_weights, robust=robust,
+            trim=trim, iters=iters, tol=tol)
     v32, b32 = v_stack.float(), b_stack.float()
+    if robust != "none":
+        based = agg.rebase_factored_stack(v32, b32, side)
+        return agg.robust_factored_reduce(
+            based, weights, robust, trim=trim, iters=iters, tol=tol,
+            batch_dims=v32.ndim - 3)
     if protocol == "avg":
         t = transfer_grams(b32)                          # (C, *B, r, r)
         if side == proj.RIGHT:
@@ -225,11 +249,12 @@ def sync_block_hetero_factored(protocol: str, v_stack, b_stack, side: str,
 
 
 def map_sync_leaves(leaf_fn, v_leaves, b_leaves):
-    """Apply ``leaf_fn(v_stack, b_stack) -> synced`` over parallel per-leaf
-    lists of client-stacked (C, ·) moments and bases, one batched program
-    per shape bucket: the leaves of a bucket stack along a new axis after
-    the client axis, so the bucket's small eigensolves run as one batch.
-    ``None`` v-leaves (non-adapted blocks) pass through as ``None``."""
+    """Apply ``leaf_fn(v_stack, b_stack, n_batch) -> synced`` over parallel
+    per-leaf lists of client-stacked (C, ·) moments and bases, one batched
+    program per shape bucket: the leaves of a bucket stack along a new
+    axis after the client axis (``n_batch`` = 1; 0 for a lone leaf), so
+    the bucket's small eigensolves run as one batch. ``None`` v-leaves
+    (non-adapted blocks) pass through as ``None``."""
     out = [None] * len(v_leaves)
     keys = [None if v is None else
             (tuple(v.shape), str(v.dtype), tuple(b.shape), str(b.dtype))
@@ -237,11 +262,11 @@ def map_sync_leaves(leaf_fn, v_leaves, b_leaves):
     buckets, _ = bucket_by_shape(keys)
     for _, idxs in buckets:
         if len(idxs) == 1:
-            out[idxs[0]] = leaf_fn(v_leaves[idxs[0]], b_leaves[idxs[0]])
+            out[idxs[0]] = leaf_fn(v_leaves[idxs[0]], b_leaves[idxs[0]], 0)
             continue
         vs = torch.stack([v_leaves[i] for i in idxs], dim=1)
         bs = torch.stack([b_leaves[i] for i in idxs], dim=1)
-        res = leaf_fn(vs, bs)
+        res = leaf_fn(vs, bs, 1)
         for j, i in enumerate(idxs):
             out[i] = res[j]
     return out

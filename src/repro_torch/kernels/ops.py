@@ -160,6 +160,20 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
                                   scale=scale)
 
 
+def nan_safe_eigh(a):
+    """``torch.linalg.eigh`` of a (..., n, n) stack, except that a matrix
+    with a non-finite entry gets NaN eigenpairs instead of an error — what
+    LAPACK returns through JAX, so a corrupted upload propagates as NaN to
+    the checks that look for it. Finite matrices are solved as they are
+    (a selection, no copy of their values), so the result is bitwise
+    ``torch.linalg.eigh``'s."""
+    bad = ~torch.isfinite(a).all(-1).all(-1)
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    lam, vec = torch.linalg.eigh(torch.where(bad[..., None, None], eye, a))
+    return (torch.where(bad[..., None], float("nan"), lam),
+            torch.where(bad[..., None, None], float("nan"), vec))
+
+
 def batched_small_eigh(a, *, mask=None, force=None, sweeps=12):
     """Eigendecomposition of a batched symmetric stack ``(..., n, n)``;
     returns ``(lam, vec)`` ascending.
@@ -184,7 +198,7 @@ def batched_small_eigh(a, *, mask=None, force=None, sweeps=12):
                   (force is None and a.device.type == "cuda"
                    and n <= MAX_JACOBI_DIM))
     if not use_jacobi:
-        lam, vec = torch.linalg.eigh(a)
+        lam, vec = nan_safe_eigh(a)
     elif _kernel(a):
         lam, vec = _eigh.jacobi_eigh(a.float(), sweeps=sweeps)
     else:

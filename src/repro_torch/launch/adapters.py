@@ -72,8 +72,9 @@ class AdapterStore:
     ``params``/``target_fn`` fix the leaf layout: every target leaf
     ``(..., m, n)`` gets a basis row ``(..., dim, rank)`` and an R̃ row
     (``(..., m, rank)`` right / ``(..., rank, n)`` left, GaLore ``std``
-    side convention). Rows stay resident; ``directory`` (spill) is not
-    ported yet and raises.
+    side convention). With a ``directory``, shards beyond
+    ``max_resident_shards`` spill there through the client-state store,
+    in the reference's file format.
     """
 
     def __init__(self, params: PyTree, target_fn, n_adapters: int,

@@ -188,22 +188,27 @@ def _tiny_engine(**kw):
 
 
 def test_unported_paths_raise_naming_the_roadmap():
-    """Only population and robustness (ROADMAP Queue 1 item 10) are left
-    to refuse: every method builds, in every round form."""
+    """Every method builds in every round form, with the population and
+    defense settings too (ROADMAP Queue 1 item 10 is ported); what is
+    left to refuse are the model families of item 11."""
     from repro_torch.core.fed import METHODS
+    from repro_torch.core.population import ParticipationConfig
     for method in METHODS:
         for kw in ({}, dict(fused_round=False), dict(factored_sync=False),
-                   dict(factored_clients=False), dict(lift_free=False)):
+                   dict(factored_clients=False), dict(lift_free=False),
+                   dict(participation=ParticipationConfig(dropout_rate=0.5))):
             _tiny_engine(method=method, **kw)
     for kw in (dict(quarantine=True), dict(robust_agg="geomedian"),
-               dict(participation=object())):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            _tiny_engine(**kw)
+               dict(quarantine=True, robust_agg="trimmed_mean")):
+        _tiny_engine(**kw)
     eng = _tiny_engine()
     batch = {"tokens": np.zeros((C, T, 2, 4), np.int32),
              "labels": np.full((C, T, 2, 4), -1, np.int32)}
-    with pytest.raises(NotImplementedError, match="item 10"):
-        eng.run_round(batch, mask=np.ones(C, bool))
+    eng.run_round(batch, mask=np.array([True, False, True, True]),
+                  attack=np.array([1.0, 1.0, -1.0, 1.0], np.float32))
+    cfg = smoke_variant(get_config("rwkv6-1.6b"))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tmodel.loss_fn({}, cfg, batch)
 
 
 def test_run_rounds_is_a_loop_of_rounds():

@@ -471,8 +471,12 @@ def test_demo_wrap_feeds_the_kernel_path(slice_):
     assert out.shape == (4, 8)
 
 
-def test_errors(slice_):
-    _, tcfg, _, _, tserved, _ = slice_
+def test_errors(slice_, tmp_path):
+    """The serving path's refusals; and ``AdapterStore(directory=)``
+    spilling every tenant but one (one-tenant shards, one resident):
+    its tables equal the unspilled JAX store's, and JAX's store reads
+    its spill files."""
+    jcfg, tcfg, jparams, jserved, tserved, factors = slice_
     prompts = torch.from_numpy(_prompts(8, (2, 4), tcfg.vocab_size))
     with torch.inference_mode():
         state = tmodel.init_decode_state(tcfg, 2, 8, device="cpu")
@@ -489,9 +493,35 @@ def test_errors(slice_):
         with pytest.raises(ValueError, match="stacked base"):
             tlayers.multi_adapter_apply(leaf, prompts.float(),
                                         torch.zeros(2, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tadapters.AdapterStore(tserved, tadapters.serving_target_fn(tcfg),
-                               2, 2, directory="spill")
+    tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                              "cpu")
+    store = tadapters.AdapterStore(
+        tparams, tadapters.serving_target_fn(tcfg), G, 3,
+        directory=str(tmp_path), shard_size=1, max_resident_shards=1)
+    for i, (basis, rt, scale) in enumerate(factors):
+        store.put(i, rt, basis, scale=scale)
+    assert store.store.spills == G - 1
+    got = store.wrap(tparams)
+    is_delta = lambda x: isinstance(x, tlayers.MultiAdapterDelta)  # noqa
+    want = [x for x in jax.tree_util.tree_leaves(
+        jserved, is_leaf=lambda x: isinstance(x, jlayers.MultiAdapterDelta))
+        if isinstance(x, jlayers.MultiAdapterDelta)]
+    mine = [x for x in tree.tree_leaves(got, is_leaf=is_delta)
+            if is_delta(x)]
+    assert len(mine) == len(want) > 0
+    for t, j in zip(mine, want):
+        for f in ("bases", "rts", "scales"):
+            np.testing.assert_array_equal(getattr(t, f).numpy(),
+                                          np.asarray(getattr(j, f)))
+    store.store.flush()
+    jstore = jadapters.AdapterStore(
+        jparams, jadapters.serving_target_fn(jcfg), G, 3,
+        directory=str(tmp_path), shard_size=1, max_resident_shards=1)
+    jrows = jstore.store.gather(np.arange(G))
+    trows = store.store.gather(np.arange(G))
+    for a, b in zip(jax.tree_util.tree_leaves(jrows),
+                    tree.tree_leaves(trows)):
+        np.testing.assert_array_equal(np.asarray(a), b)
 
 
 @pytest.mark.parametrize("bad", [-1, G])
@@ -529,6 +559,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 for name in ("repro_torch.utils.prng", "repro_torch.core.fed",
+             "repro_torch.checkpoint", "repro_torch.checkpoint.io",
+             "repro_torch.core.population",
              "repro_torch.core.ajive", "repro_torch.core.state_sync",
              "repro_torch.core.aggregation", "repro_torch.optim.adamw",
              "repro_torch.kernels.galore_adamw",
@@ -537,7 +569,9 @@ for name in ("repro_torch.utils.prng", "repro_torch.core.fed",
              "repro_torch.configs.rwkv6_1_6b"):
     assert name in names, name
 for name, path in (("chip_smoke", "chip_smoke.py"),
-                   ("quickstart_torch", "examples/quickstart_torch.py")):
+                   ("quickstart_torch", "examples/quickstart_torch.py"),
+                   ("population_cohorts_torch",
+                    "examples/population_cohorts_torch.py")):
     spec = importlib.util.spec_from_file_location(name, ROOT + "/" + path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(n for n in sys.modules

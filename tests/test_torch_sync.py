@@ -164,7 +164,7 @@ def test_map_sync_leaves_bucketed_matches_jax(protocol, hetero):
     w = _weights(4)
 
     def leaf_fn(sync_lib, wt):
-        def fn(v, b):
+        def fn(v, b, n_batch=0):
             side = "right" if v.shape[-1] == b.shape[-1] else "left"
             if hetero:
                 return sync_lib.sync_block_hetero_factored(protocol, v, b,
@@ -212,9 +212,15 @@ def test_factored_lift_averages(side):
                                         torch.from_numpy(b), side,
                                         torch.from_numpy(w), hetero=hetero)
         assert _rel(got.numpy(), want) <= 1e-5
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tagg.robust_factored_lift(torch.from_numpy(d), torch.from_numpy(b),
-                                  side, torch.from_numpy(w), "geomedian")
+    for hetero in (False, True):
+        want = jagg.robust_factored_lift(jnp.asarray(d), jnp.asarray(b), side,
+                                         jnp.asarray(w), "geomedian",
+                                         hetero=hetero)
+        got = tagg.robust_factored_lift(torch.from_numpy(d),
+                                        torch.from_numpy(b), side,
+                                        torch.from_numpy(w), "geomedian",
+                                        hetero=hetero)
+        assert _rel(got.numpy(), want) <= 1e-5
 
 
 def test_weighted_average():
