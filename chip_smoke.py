@@ -31,11 +31,29 @@ weights from ``--seed``):
   128, sliding window 4096): the same serving run with 8 adapters on its
   six target projections, and one long-context prefill of 8192 tokens on
   the base weights, where the window acts, run twice: over an 8200-slot
-  cache and over a ring of the 4096-token window (greedy tokens equal).
+  cache and over a ring of the 4096-token window (greedy tokens equal);
+* serving granite-moe-1b-a400m (24 layers, d 1024, 16 q heads on 8 kv
+  heads of 64, 32 experts top-8 per layer): the serving run with 8
+  adapters on its four attention projections (experts and routers
+  frozen), the MoE's routing compared between the kernel and plain runs;
+* serving mistral-nemo-12b (40 layers, d 5120, 32 q heads on 8 kv heads
+  of 128, so the heads span 4096 of the 5120 model columns): 8 requests
+  of 128 tokens, 16 new tokens each, 8 adapters on seven projections;
+* the paper's NLU example, ``examples/federated_finetune_100m_torch.py``,
+  for three FedGaLore rounds of paper-roberta-like (12 layers, d 768,
+  sinusoidal positions; 4 clients, 4 local steps, batch 4 x 64, rank 8):
+  round 0 through ``galore_precond_step`` and ``jacobi_eigh``, rounds 1
+  and 2 through ``lowrank_linear`` and ``jacobi_eigh``, its evaluation
+  forwards through ``flash_attention``;
+* two FedGaLore rounds of paper-vit-like (12 layers, d 768) on the patch
+  task: 196 stub patch embeddings, then 4 text tokens, 4 clients, 2 local
+  steps, batch 4, the evaluation after each round through
+  ``flash_attention``.
 
-Every dense prefill's attention goes through ``flash_attention`` (qwen
-and starcoder2), decode's through the plain masked attention over the
-KV cache.
+Every dense prefill's attention goes through ``flash_attention`` (qwen,
+starcoder2, granite, mistral-nemo), as do the training paths' evaluation
+forwards (no autograd graph); decode's through the plain masked
+attention over the KV cache.
 
 Each kernel is held against its plain PyTorch version at every shape its
 path launches (a ``ShapeLog`` fails the run on an unchecked shape) and,
@@ -45,7 +63,10 @@ and ``simt``); the launch counters show each path went through its
 kernels, and the route counters that every low-rank and flash launch on
 a path took a tensor-core route; each path is
 compared end to end against a run with every kernel's plain version
-(``ops.plain_kernels``), and each kernel is timed against its bound.
+(``ops.plain_kernels``), beside controls that must read above each
+bound (a planted fault for serving: each row's adapter id rolled by one;
+a round's update dropped for training), and each kernel is timed against
+its bound.
 Every phase prints JSON lines; any failure raises and the script exits
 non-zero without the closing ``{"ok": true, ...}`` line. Needs one CUDA
 card; imports neither JAX nor the JAX package.
@@ -53,6 +74,7 @@ card; imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import os
@@ -83,6 +105,14 @@ SHAPES = [(1024, 1024), (1024, 2816), (2816, 1024)]   # (m, n) of the path
 # (1024,2816), w_down @ (2816,1024)
 LAYER_MIX = {(1024, 1024): 4, (1024, 2816): 2, (2816, 1024): 1}
 PARITY_BOUND = 5e-2     # max |logit diff| / max |logit|, bf16 end to end
+# (random-weight mistral-nemo-12b amplifies one bf16 ulp on 1 % of its
+# embeddings to 8.4e-2 of its logit scale on an NVIDIA H100 80GB HBM3 at
+# 700 W, above this bound, and each of its kernels alone, the others on
+# their plain versions, reads 6.0e-2 and 6.2e-2 there
+# (scripts/parity_decompose.py): its parity is gated at that control
+# instead, phase_parity's floor_gate. Every adapted parity run also
+# plants a fault, each row's adapter id rolled by one, that must read
+# above the gate: 0.68-1.15 of the logit scale on that card.)
 # Kernel launches per forward, stated before the run: qwen1.5-0.5b adapts
 # 7 projections per layer; rwkv6-1.6b adapts 8 (time-mix wr wk wv wg wo,
 # channel-mix wk wv wr) and runs the WKV recurrence once per layer.
@@ -92,7 +122,25 @@ RWKV_PER_FORWARD = {"lowrank_linear_batched": 8 * 24, "rwkv6_scan": 24}
 # a dense model's prefill runs flash_attention once per layer; decode
 # attends over its KV cache with the plain masked attention.
 QWEN_PER_PREFILL = {"flash_attention": 24}
-FULL_LAYERS = {"qwen1.5-0.5b": 24, "rwkv6-1.6b": 24, "starcoder2-7b": 32}
+FULL_LAYERS = {"qwen1.5-0.5b": 24, "rwkv6-1.6b": 24, "starcoder2-7b": 32,
+               "granite-moe-1b-a400m": 24, "mistral-nemo-12b": 40,
+               "paper-roberta-like": 12, "paper-vit-like": 12}
+
+# granite-moe-1b-a400m: (m, n) of its four adapted projections per layer
+# (wq wo (1024, 1024), wk wv (1024, 512)); 16 q heads on 8 kv heads of 64.
+# Its MoE FFNs (experts, routers) are frozen and launch no kernel.
+GRANITE_SHAPES = [(1024, 1024), (1024, 512)]
+GRANITE_PER_FORWARD = {"lowrank_linear_batched": 4 * 24}
+GRANITE_PER_PREFILL = {"flash_attention": 24}
+# mistral-nemo-12b: (m, n) of its seven adapted projections per layer (wq
+# (5120, 4096), wk wv (5120, 1024), wo (4096, 5120), w_gate w_up (5120,
+# 14336), w_down (14336, 5120)); 32 q heads on 8 kv heads of 128. Its
+# serving run: 8 requests of 128 tokens, 16 new tokens each.
+NEMO_SHAPES = [(5120, 4096), (5120, 1024), (4096, 5120), (5120, 14336),
+               (14336, 5120)]
+NEMO_PER_FORWARD = {"lowrank_linear_batched": 7 * 40}
+NEMO_PER_PREFILL = {"flash_attention": 40}
+NEMO_REQUESTS, NEMO_NEW = 8, 16
 
 # starcoder2-7b: (m, n) of its six adapted projections per layer (wq wo
 # (4608, 4608), wk wv (4608, 512), w_up (4608, 18432), w_down (18432,
@@ -201,6 +249,48 @@ POP_MASKED_ROUNDS = (0, 2, 3, 4)
 # fails unless both of its controls exceed it. Its loss control: round 1's first-step
 # losses at the initial weights, i.e. with round 0's update lost.
 POP_DELTA_BOUND = 0.2
+
+# The paper's own backbones in training (stated before their first run):
+# paper-roberta-like through examples/federated_finetune_100m_torch.py's
+# main(["--rounds", "3"]) (C = 4, T = 4, batch 4 x 64, rank 8, lr 1e-4,
+# fedgalore), and paper-vit-like for two fedgalore rounds on the patch
+# task (196 patch embeddings + 4 text tokens, C = 4, T = 2, batch 4,
+# rank 8, lr 3e-3), each with an evaluation forward under no_grad. Their
+# six adapted projections a layer are wq wk wv wo (768, 768), w_up (768,
+# 3072) and w_down (3072, 768): round 0 runs the preconditioner on the
+# three shape buckets (4, 12, 768, 768) and (1, 12, 768, 3072) (left) and
+# (1, 12, 3072, 768) per client and local step, and 𝒮 on three buckets
+# (Grams (4, 12, 4, 8, 8) and twice (12, 4, 8, 8)); later rounds read the
+# 6 x 12 = 72 projections of each forward lift-free.
+NLU_LAYERS = 12
+NLU_SHAPES = {(768, 768): 4, (768, 3072): 1, (3072, 768): 1}
+NLU_ROUNDS, NLU_CLIENTS, NLU_STEPS, NLU_B, NLU_L = 3, 4, 4, 4, 64
+NLU_EVAL = 128                  # the example's evaluation batch
+VIT_ROUNDS, VIT_STEPS, VIT_B, VIT_PATCHES, VIT_TEXT = 2, 2, 4, 196, 4
+VIT_L = VIT_PATCHES + VIT_TEXT
+VIT_EXAMPLES, VIT_CLASSES, VIT_EVAL = 256, 8, 32
+
+
+def nlu_launches(steps):
+    """Per round launches of a paper-backbone FedGaLore round with C =
+    NLU_CLIENTS clients of ``steps`` local steps."""
+    forwards = NLU_CLIENTS * steps
+    return {0: {"galore_precond_step": 3 * forwards, "jacobi_eigh": 3,
+                "lowrank_linear": 0},
+            1: {"galore_precond_step": 0, "jacobi_eigh": 3,
+                "lowrank_linear": 6 * NLU_LAYERS * forwards}}
+
+
+# Evaluation forwards (flash_attention, once a layer): the example
+# evaluates after rounds 0 and 2, each a forward and a loss_fn; the vit
+# phase after each round, a loss_fn.
+NLU_FLASH = 2 * 2 * NLU_LAYERS
+VIT_FLASH = VIT_ROUNDS * NLU_LAYERS
+# D's bound for the three roberta rounds, set between the sound reading
+# and its controls as POP_DELTA_BOUND: dropping one of three rounds'
+# updates moves D by about a third of it or more. The vit rounds are held
+# to TRAIN_DELTA_BOUND, as phase_train's two.
+NLU_DELTA_BOUND = 0.2
 
 
 def emit(obj) -> None:
@@ -447,8 +537,8 @@ def phase_kernel_checks(gen, shapes, edges=False):
              for (m, n) in shapes
              for b, t in ((B, 1), (B, 100), (B, PROMPT), (1, PROMPT),
                           (1, 100))]
-    cases += [(B, *shapes[1], 100, torch.float32, False, False, R),
-              (B, *shapes[2], 1, torch.bfloat16, True, False, R)]   # 2-D x
+    cases += [(B, *shapes[-2], 100, torch.float32, False, False, R),
+              (B, *shapes[-1], 1, torch.bfloat16, True, False, R)]  # 2-D x
     if edges:
         cases += [(b, m, n, t, torch.bfloat16, False, False, R)
                   for b, t, m, n in ROUTE_EDGES]
@@ -591,10 +681,11 @@ def _check_shapes(arch, seen, checked):
 
 
 def phase_serve(seed, card, checked, arch, per_forward, phase,
-                ragged=None, per_prefill=None):
-    """A serving path at full width: SlotServer serves 16 requests (every
-    other one cut to ``ragged`` tokens when given), then generate runs
-    once; every adapted projection goes through ``lowrank_linear_batched``,
+                ragged=None, per_prefill=None, requests=2 * B, new=NEW):
+    """A serving path at full width: SlotServer serves ``requests``
+    requests of ``new`` tokens (every other prompt cut to ``ragged``
+    tokens when given), then generate runs once on B prompts; every
+    adapted projection goes through ``lowrank_linear_batched``,
     for RWKV every layer's recurrence through ``rwkv6_scan``, and for a
     dense model every prefill layer's attention through
     ``flash_attention``. ``per_forward`` states each kernel's launches per
@@ -616,20 +707,21 @@ def phase_serve(seed, card, checked, arch, per_forward, phase,
     setup_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     torch.cuda.reset_peak_memory_stats()      # the serving run's own peak
     rng = np.random.default_rng(seed + 1)
-    prompts = rng.integers(0, cfg.vocab_size, (2 * B, PROMPT), dtype=np.int32)
+    prompts = rng.integers(0, cfg.vocab_size, (max(requests, B), PROMPT),
+                           dtype=np.int32)
     reqs = [serve.Request(rid=i,
                           prompt=prompts[i][:ragged if i % 2 else None],
-                          max_new=NEW, adapter=i % G) for i in range(2 * B)]
+                          max_new=new, adapter=i % G) for i in range(requests)]
     # warm-up (CUDA context, library handles), outside the counted run
-    serve.SlotServer(served, cfg, slots=B, cache_len=PROMPT + NEW).run(
+    serve.SlotServer(served, cfg, slots=B, cache_len=PROMPT + new).run(
         [serve.Request(rid=0, prompt=prompts[0], max_new=2)])
 
     _zero_counts()
     with ShapeLog(SERVE_LOG) as log:
-        srv = serve.SlotServer(served, cfg, slots=B, cache_len=PROMPT + NEW,
+        srv = serve.SlotServer(served, cfg, slots=B, cache_len=PROMPT + new,
                                segment=8)
         out = srv.run(reqs)
-        gen_out = serve.generate(served, cfg, prompts[:B], NEW, PROMPT + NEW,
+        gen_out = serve.generate(served, cfg, prompts[:B], new, PROMPT + new,
                                  adapters=np.arange(B) % G)
         torch.cuda.synchronize()
     launches = _launch_counts()
@@ -640,24 +732,24 @@ def phase_serve(seed, card, checked, arch, per_forward, phase,
 
     s = out["stats"]
     prefills = s["admitted"] + 1                    # SlotServer, generate
-    forwards = prefills + s["segments"] * srv.segment + (NEW - 1)
+    forwards = prefills + s["segments"] * srv.segment + (new - 1)
     _check_launches(arch, launches, {
         name: per_forward.get(name, 0) * forwards
         + per_prefill.get(name, 0) * prefills
         for name in set(per_forward) | set(per_prefill)})
-    check(s["admitted"] == 2 * B and not srv.active.any(),
+    check(s["admitted"] == requests and not srv.active.any(),
           "SlotServer did not serve every request")
-    for i in range(2 * B):
+    for i in range(requests):
         toks = out["outputs"][i]
-        check(len(toks) == NEW and all(0 <= v < cfg.vocab_size
+        check(len(toks) == new and all(0 <= v < cfg.vocab_size
                                        for v in toks),
               f"request {i}: {len(toks)} tokens, out of range or short")
-    check(tuple(gen_out.shape) == (B, PROMPT + NEW) and
+    check(tuple(gen_out.shape) == (B, PROMPT + new) and
           bool(((gen_out >= 0) & (gen_out < cfg.vocab_size)).all()),
           "generate output has the wrong shape or range")
     emit({"phase": phase, "arch": cfg.name, "card": card,
-          "requests": 2 * B, "slots": B, "prompt": PROMPT,
-          "ragged_prompt": ragged, "max_new": NEW, "adapters": G, "rank": R,
+          "requests": requests, "slots": B, "prompt": PROMPT,
+          "ragged_prompt": ragged, "max_new": new, "adapters": G, "rank": R,
           "setup_s": setup_s, "prefill_tok_s": s["prefill_tok_s"],
           "decode_tok_s": s["decode_tok_s"], "segments": s["segments"],
           "forwards": forwards, "prefill_forwards": prefills,
@@ -670,15 +762,63 @@ def phase_serve(seed, card, checked, arch, per_forward, phase,
     return cfg, served, launches, routes
 
 
+class RouteLog:
+    """Records the experts every MoE layer picks (``moe.route``'s (N, k)
+    top indices) while active, in call order."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.orig, self.picks = moe, moe.route, []
+
+        def logged(*args, **kw):
+            out = self.orig(*args, **kw)
+            self.picks.append(out[1])
+            return out
+
+        moe.route = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.orig
+        return False
+
+
+def routing_flip_share(picks, other) -> float:
+    """The share of (token, slot) expert choices in ``picks`` that
+    ``other`` (the same calls, another run) does not make: the experts a
+    token gains, over all tokens and slots of all layers; an order swap
+    within a token's top k is no flip."""
+    check(len(picks) == len(other) and all(a.shape == b.shape for a, b in
+                                           zip(picks, other)),
+          "the two runs routed different numbers or shapes of tokens")
+    gained = total = 0
+    for a, b in zip(picks, other):
+        n_exp = int(max(a.max(), b.max())) + 1
+        oa = torch.nn.functional.one_hot(a, n_exp).sum(1)
+        ob = torch.nn.functional.one_hot(b, n_exp).sum(1)
+        gained += int((oa - ob).clamp(min=0).sum())
+        total += a.numel()
+    return gained / max(total, 1)
+
+
 def phase_parity(cfg, served, seed, phase="parity", batch=B, prompt=PROMPT,
-                 adapters=True):
+                 adapters=True, floor_gate=False):
     """One prefill of ``batch`` x ``prompt`` tokens + 4 decode steps,
     kernel vs plain version on the card, the same tokens fed to both (each
     row its own adapter, or the base weights). A control, reported and not
     gated, reads how far the plain path itself moves when 1 % of the
     embedding table's entries move by one bf16 ulp: the model's own
     amplification of rounding, the floor under any kernel that rounds in
-    another order."""
+    another order. With ``floor_gate`` (a model whose control reads above
+    PARITY_BOUND: no implementation that rounds in another order could
+    meet the bound) the gate is that control instead: the kernel path may
+    move the logits no more than the model's own rounding floor. For an
+    MoE model each run's expert choices are logged and the share that
+    differs from the plain run's is reported (not gated), for the kernel
+    run and for the control. With adapters, a planted fault (the kernel
+    path with each row's adapter id rolled by one, as a wrong gather in
+    ``lowrank_linear_batched`` would apply) must read above the gate, so
+    the gate can fail a wrong kernel."""
     from repro_torch.kernels import ops
     from repro_torch.models import layers
     from repro_torch.models import model as model_lib
@@ -693,7 +833,7 @@ def phase_parity(cfg, served, seed, phase="parity", batch=B, prompt=PROMPT,
            if adapters else None)
 
     @torch.inference_mode()
-    def run(params=served):
+    def run(params=served, ids=ids):
         st = model_lib.init_decode_state(cfg, batch, prompt + 4,
                                          device="cuda")
         outs = []
@@ -706,10 +846,11 @@ def phase_parity(cfg, served, seed, phase="parity", batch=B, prompt=PROMPT,
         return torch.stack(outs)
 
     torch.cuda.reset_peak_memory_stats()
-    got = run()
+    with RouteLog() as got_routes:
+        got = run()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
-    with ops.plain_kernels():
+    with ops.plain_kernels(), RouteLog() as want_routes:
         want = run()
     plain_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     emb = served["embed"]["w"]
@@ -719,26 +860,42 @@ def phase_parity(cfg, served, seed, phase="parity", batch=B, prompt=PROMPT,
     bumped = dict(served, embed={"w": torch.where(
         moved, torch.nextafter(emb, torch.full_like(emb, float("inf"))),
         emb)})
-    with ops.plain_kernels():
+    with ops.plain_kernels(), RouteLog() as control_routes:
         control = run(bumped)
     del moved, bumped
+    fault = run(ids=(ids + 1) % G) if adapters else None
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got).all()), "kernel-path logits not finite")
     scale = want.abs().max().item()
     rel = (got - want).abs().max().item() / scale
     agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    floor = (control - want).abs().max().item() / scale
+    gate = max(PARITY_BOUND, floor) if floor_gate else PARITY_BOUND
+    fault_rel = (None if fault is None else
+                 (fault - want).abs().max().item() / scale)
     emit({"phase": phase, "arch": cfg.name,
           "forwards": "prefill + 4 decode", "batch": batch,
           "prompt": prompt, "adapters": G if adapters else 0,
           "logit_scale": scale, "max_abs_diff_rel": rel,
           "per_forward_rel": [(g - w).abs().max().item() / scale
                               for g, w in zip(got, want)],
-          "greedy_agreement": agree, "bound": PARITY_BOUND,
+          "greedy_agreement": agree, "bound": PARITY_BOUND, "gate": gate,
           "peak_gib": peak, "plain_peak_gib": plain_peak,
-          "control_embed_ulp_rel":
-              (control - want).abs().max().item() / scale})
-    check(rel <= PARITY_BOUND, f"{cfg.name}: end-to-end logits differ by "
-                               f"{rel} of the logit scale > {PARITY_BOUND}")
+          "control_embed_ulp_rel": floor,
+          "control_greedy_agreement":
+              (control.argmax(-1) == want.argmax(-1)).float().mean().item(),
+          "fault_adapter_ids_rolled_rel": fault_rel,
+          **({"moe_routes": len(want_routes.picks),
+              "routing_flip_share": routing_flip_share(got_routes.picks,
+                                                       want_routes.picks),
+              "control_routing_flip_share": routing_flip_share(
+                  control_routes.picks, want_routes.picks)}
+             if want_routes.picks else {})})
+    check(rel <= gate, f"{cfg.name}: end-to-end logits differ by {rel} of "
+                       f"the logit scale > {gate}")
+    check(fault_rel is None or fault_rel > gate,
+          f"{cfg.name}: rolled adapter ids read {fault_rel} <= the gate "
+          f"{gate}: the parity check cannot see a wrong adapter")
 
 
 def _scan_case(gen, b, l, dtype=torch.bfloat16, w_dtype=torch.float32,
@@ -986,6 +1143,12 @@ FLASH_PATH = [
      SC_WINDOW),
     ("starcoder2 long prefill", 1, LONG_PROMPT, LONG_PROMPT, SC_H, SC_KV,
      SC_D, SC_WINDOW),
+    ("granite admission prefill", 1, PROMPT, PROMPT, 16, 8, 64, 0),
+    ("granite generate prefill", B, PROMPT, PROMPT, 16, 8, 64, 0),
+    ("mistral-nemo admission prefill", 1, PROMPT, PROMPT, 32, 8, 128, 0),
+    ("mistral-nemo generate prefill", B, PROMPT, PROMPT, 32, 8, 128, 0),
+    ("roberta evaluation forward", 128, 64, 64, 12, 12, 64, 0),
+    ("vit evaluation forward", 32, 200, 200, 12, 12, 64, 0),
 ]
 
 
@@ -1345,7 +1508,8 @@ def galore_kernel_checks(seed, out):
     # != 0 with fp32, both sides), M = 1, N = 1, and ranks 1, 16 and 64.
     # Each launch takes plan()'s route.
     path = [((4, 24), 1024, 1024), ((2, 24), 1024, 2816),
-            ((1, 24), 2816, 1024)]
+            ((1, 24), 2816, 1024)] + [
+        ((k, NLU_LAYERS), mm, nn) for (mm, nn), k in NLU_SHAPES.items()]
     cases = [(lead, mm, nn, TRAIN_R, mode) for mode in (ga.PRECOND_UT,
                                                         ga.PRECOND_U)
              for lead, mm, nn in path] + \
@@ -1472,6 +1636,8 @@ def phase_train_kernel_checks(gen, seed):
     lows += [((1032, 520), lead, torch.bfloat16, False)
              for lead in ((1, 1), (2, 4), (1, 16), (1, 17), (1, 63), (1, 64),
                           (1, 65), (1, 100), (1, 128), (8, 128))]
+    lows += [((m, n), lead, torch.bfloat16, False) for (m, n) in NLU_SHAPES
+             for lead in ((NLU_B, NLU_L), (VIT_B, VIT_L))]
     lows += [((4104, 136), (2, 100), torch.bfloat16, False),
              ((1024, 2816), (TRAIN_B, TRAIN_L), torch.bfloat16, True),
              ((1024, 1024), (2, 4), torch.bfloat16, True)]
@@ -1517,7 +1683,8 @@ def phase_train_kernel_checks(gen, seed):
     # diagonal input (exact-zero off-diagonals) through the masked ops
     # path. Each case takes the route plan() names.
     wmax, pmax = be.WARP_MAX_N, be.PAIR_MAX_BATCH
-    shapes = [(4, 24, CLIENTS), (24, CLIENTS), (2, 24, CLIENTS)]
+    shapes = [(4, 24, CLIENTS), (24, CLIENTS), (2, 24, CLIENTS),
+              (4, NLU_LAYERS, CLIENTS), (NLU_LAYERS, CLIENTS)]
     cases = [(lead, TRAIN_R) for lead in shapes] + \
         [((7,), n) for n in range(1, 65)] + \
         [(lead, n) for n in (wmax - 1, wmax, wmax + 1)
@@ -1635,39 +1802,18 @@ def _run_train(seed, plain: bool, **fed_kw):
     per-round losses, times, 𝒮's seconds and launch counts, the global
     target leaves at the start, after round 0 and at the end (``snaps``),
     and the shapes each kernel saw."""
-    from repro_torch.kernels import ops
-    from repro_torch.utils import tree
     cfg, engine, batcher = _train_setup(seed, **fed_kw)
     sync_s = _time_method(engine, "_sync_states_eager",
                           _time_method(engine, "_sync_states"))
-
-    def snap():
-        return [x.detach().clone()
-                for x in tree.tree_leaves(engine.global_trainable)]
-
-    snaps = {"init": snap()}
-    rounds = []
-    with ShapeLog(TRAIN_LOG) as log:
-        for rnd in range(2):
-            batches = batcher.round_batches(LOCAL_STEPS)
-            torch.cuda.synchronize()
-            _zero_counts()
-            t0 = time.perf_counter()
-            if plain:
-                with ops.plain_kernels():
-                    metrics = engine.run_round(batches)
-            else:
-                metrics = engine.run_round(batches)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            rounds.append({"round": rnd, "seconds": seconds,
-                           "sync_s": sum(sync_s), "launches": _launch_counts(),
-                           "routes": _route_counts(),
-                           "losses": metrics["local_loss"].cpu()})
+    with _plain_or_kernels(plain), RoundLog() as rl, \
+            ShapeLog(TRAIN_LOG) as log:
+        for _ in range(2):
+            engine.run_round(batcher.round_batches(LOCAL_STEPS))
+            rl.rounds[-1]["sync_s"] = sum(sync_s)
             sync_s.clear()
-            snaps["round0" if rnd == 0 else "final"] = snap()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    return cfg, engine, rounds, snaps, log.seen, peak
+    snaps = dict(zip(("init", "round0", "final"), rl.snaps))
+    return cfg, engine, rl.rounds, snaps, log.seen, peak
 
 
 def phase_train(seed, card, checked):
@@ -2110,9 +2256,10 @@ def _first_step_losses(engine, leaves, batches):
     from repro_torch.utils import tree
     treedef = tree.tree_flatten(engine.global_trainable)[1]
     engine.global_trainable = treedef.unflatten(list(leaves))
+    clients = tree.tree_leaves(batches)[0].shape[0]
     with ops.plain_kernels():
         return torch.tensor([engine.evaluate(tree.tree_map(
-            lambda x: x[c, 0], batches)) for c in range(CLIENTS)])
+            lambda x: x[c, 0], batches)) for c in range(clients)])
 
 
 def _run_population(seed, pcfg, batches_for, store_dir, plain=False,
@@ -2355,6 +2502,308 @@ def phase_population(seed, card, checked, gen, train_controls):
     del snaps, plain
     torch.cuda.empty_cache()
     return rows, launches
+
+
+class RoundLog:
+    """Records every ``FedEngine.run_round`` while active, whoever built
+    the engine (an example's ``main`` too): the round's seconds, its
+    per-step local losses and batches, the launches and routes of each
+    kernel in the call (counts set to 0 just before it and read just
+    after), and the global target leaves before the first round and after
+    each.
+    ``launches`` / ``routes`` total the whole run from entry: the rounds'
+    counts and those read between and after them (evaluations)."""
+
+    def __enter__(self):
+        from repro_torch.core.fed import FedEngine
+        from repro_torch.utils import tree
+        self.cls, self.orig = FedEngine, FedEngine.run_round
+        self.rounds, self.snaps, self.batches = [], [], []
+        self.launches = dict.fromkeys(_counted(), 0)
+        self.routes = {k: dict.fromkeys(v, 0)
+                       for k, v in _route_counts().items()}
+        _zero_counts()
+        log = self
+
+        def snap(engine):
+            return [x.detach().clone()
+                    for x in tree.tree_leaves(engine.global_trainable)]
+
+        def run_round(engine, *args, **kw):
+            if not log.snaps:
+                log.snaps.append(snap(engine))
+            log.batches.append(args[0] if args else kw["client_batches"])
+            torch.cuda.synchronize()
+            log._bank()                 # launches since the last reading
+            t0 = time.perf_counter()
+            metrics = log.orig(engine, *args, **kw)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches, routes = log._bank()
+            log.rounds.append({
+                "round": len(log.rounds), "seconds": seconds,
+                "launches": launches, "routes": routes,
+                "losses": metrics["local_loss"].cpu()})
+            log.snaps.append(snap(engine))
+            return metrics
+
+        FedEngine.run_round = run_round
+        return self
+
+    def _bank(self):
+        """Adds the counts since the last zeroing to the totals, sets them
+        to 0 and returns them."""
+        launches, routes = _launch_counts(), _route_counts()
+        _zero_counts()
+        for k, n in launches.items():
+            self.launches[k] += n
+        for k, by in routes.items():
+            for r, n in by.items():
+                self.routes[k][r] = self.routes[k].get(r, 0) + n
+        return launches, routes
+
+    def __exit__(self, *exc):
+        self.cls.run_round = self.orig
+        torch.cuda.synchronize()
+        self._bank()
+        return False
+
+
+BACKBONE_LOG = {**TRAIN_LOG, "_flash": {"flash_attention": _flash_key}}
+
+
+def _check_backbone_path(phase, rl, seen, checked, per_round, steps,
+                         launches, routes, flash):
+    """A paper backbone's FedGaLore rounds went through their kernels:
+    every launched shape checked, each round's launches as ``per_round``
+    states (round 0, then every later round), round 0's preconditioner on
+    the right for the square and tall buckets and on the left for the
+    wide one, 𝒮's eigensolves on the warp route, ``flash`` launches in
+    the evaluation forwards and no kernel the path does not run."""
+    for name, keys in seen.items():
+        check(keys <= checked[name], f"{phase}: the path launched {name} "
+              f"at shapes the checks did not cover: "
+              f"{sorted(keys - checked[name])}")
+    for r in rl.rounds:
+        check(tuple(r["losses"].shape) == (NLU_CLIENTS, steps)
+              and bool(torch.isfinite(r["losses"]).all()),
+              f"{phase} round {r['round']}: losses {r['losses']}")
+        for name, want in per_round[min(r["round"], 1)].items():
+            check(r["launches"][name] == want,
+                  f"{phase} round {r['round']}: {name} launched "
+                  f"{r['launches'][name]} times, expected {want}")
+        if r["round"] == 0:
+            got = {k: v for k, v in r["routes"]["galore_precond_step"]
+                   .items() if v}
+            want = {"right": 2 * NLU_CLIENTS * steps,
+                    "left": NLU_CLIENTS * steps}
+            check(got == want, f"{phase} round 0: galore_precond_step "
+                  f"routes {got}, expected {want}")
+        check(r["routes"]["jacobi_eigh"]["warp"]
+              == r["launches"]["jacobi_eigh"],
+              f"{phase} round {r['round']}: an 𝒮 bucket left the warp "
+              "route")
+    for name in launches:
+        in_rounds = sum(r["launches"][name] for r in rl.rounds)
+        want = flash if name == "flash_attention" else in_rounds
+        if name in ("galore_adamw_step", "lowrank_linear_batched",
+                    "rwkv6_scan"):
+            want = 0
+        check(launches[name] == want, f"{phase}: {name} launched "
+              f"{launches[name]} times, expected {want}")
+    _check_tc_routes(phase, launches, routes)
+
+
+def _backbone_parity(phase, rl, plain_rl, bound, first):
+    """Kernel rounds against the same rounds with every kernel's plain
+    version: per-step losses, and the change D = leaf - init of the global
+    target leaves over all rounds, with two controls that drop a round's
+    update (the last round's, round 0's) and must read above ``bound``.
+    The loss control: round 1's first-step losses at the initial leaves
+    (``first["init"]``: round 0's update lost) against the plain run's
+    must read above TRAIN_LOSS_BOUND; ``first["round0"]``, at the kernel
+    run's leaves after round 0, is its sound reading."""
+    for r in plain_rl.rounds:
+        check(sum(r["launches"].values()) == 0,
+              f"{phase}: the plain run launched kernels: {r['launches']}")
+    init = plain_rl.snaps[0]
+    check(all(torch.equal(a, b) for a, b in zip(rl.snaps[0], init)),
+          f"{phase}: the kernel and plain runs did not start from the same "
+          "weights")
+    loss_diff = max((a["losses"] - b["losses"]).abs().max().item()
+                    for a, b in zip(rl.rounds, plain_rl.rounds))
+    final, want = rl.snaps[-1], plain_rl.snaps[-1]
+    delta_rel, delta_max_rel = _change_rel(final, want, init)
+    no_round0 = [f.float() - (r0.float() - i.float()) for f, r0, i in
+                 zip(final, rl.snaps[1], init)]
+    controls = {"last_round_dropped": _change_rel(rl.snaps[-2], want,
+                                                  init)[0],
+                "round0_dropped": _change_rel(no_round0, want, init)[0]}
+    plain1 = plain_rl.rounds[1]["losses"][:, 0]
+    loss_controls = {k: (first[k] - plain1).abs().max().item()
+                     for k in ("round0", "init")}
+    emit({"phase": phase + "_parity", "rounds": len(rl.rounds),
+          "max_abs_loss_diff": loss_diff, "loss_bound": TRAIN_LOSS_BOUND,
+          "loss_controls": {"sound": loss_controls["round0"],
+                            "round0_dropped": loss_controls["init"]},
+          "delta_rel_fro": delta_rel, "delta_bound": bound,
+          "delta_rel_max": delta_max_rel, "controls": controls,
+          "plain_round_s": [r["seconds"] for r in plain_rl.rounds]})
+    check(loss_diff <= TRAIN_LOSS_BOUND, f"{phase}: losses differ by "
+          f"{loss_diff} > {TRAIN_LOSS_BOUND}")
+    check(delta_rel <= bound, f"{phase}: the rounds' change of the global "
+          f"leaves differs by {delta_rel} of its norm > {bound}")
+    check(min(controls.values()) > bound, f"{phase}: a control with a "
+          f"round's update dropped reads {controls}, not above the bound "
+          f"{bound}: the check cannot see it")
+    check(loss_controls["init"] > TRAIN_LOSS_BOUND, f"{phase}: round 1's "
+          f"losses with round 0's update lost differ by "
+          f"{loss_controls['init']}, not above the loss bound "
+          f"{TRAIN_LOSS_BOUND}: the check cannot see it")
+
+
+def _load_example(name):
+    """A module of ``examples/`` (not a package) by its file name."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _plain_or_kernels(plain):
+    from repro_torch.kernels import ops
+    return ops.plain_kernels() if plain else contextlib.nullcontext()
+
+
+def _first_step_controls(engine, rl):
+    """Round 1's first-step losses at the leaves after round 0 and at the
+    initial ones (``_backbone_parity``'s loss control)."""
+    return {k: _first_step_losses(engine, rl.snaps[i], rl.batches[1])
+            for k, i in (("round0", 1), ("init", 0))}
+
+
+def _run_nlu(plain):
+    """The paper's NLU example, ``main(["--rounds", "3"])``, logged, and
+    the kernel run's loss control (None for the plain run)."""
+    example = _load_example("federated_finetune_100m_torch")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _plain_or_kernels(plain), RoundLog() as rl, \
+            ShapeLog(BACKBONE_LOG) as sl:
+        rows, engine = example.main(["--rounds", str(NLU_ROUNDS)])
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    first = None if plain else _first_step_controls(engine, rl)
+    del engine
+    return rows, rl, sl.seen, seconds, first
+
+
+def phase_train_roberta(card, checked):
+    """paper-roberta-like through the example's entry point: three
+    FedGaLore rounds and two evaluations, counted, then again with the
+    plain versions for parity. The example seeds its weights and data
+    with 0 whatever ``--seed``."""
+    from repro_torch.configs import get_config
+    cfg = get_config("paper-roberta-like")
+    check(cfg.param_dtype == torch.bfloat16
+          and cfg.n_layers == FULL_LAYERS[cfg.name]
+          and cfg.pos_emb == "sinusoidal",
+          "paper-roberta-like is not the full-width bf16 sinusoidal config")
+    torch.cuda.reset_peak_memory_stats()
+    rows, rl, seen, seconds, first = _run_nlu(plain=False)
+    launches, routes = rl.launches, rl.routes
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _check_backbone_path("train_roberta", rl, seen, checked,
+                         nlu_launches(NLU_STEPS), NLU_STEPS, launches,
+                         routes, NLU_FLASH)
+    check(len(rows) == 2 and all(np.isfinite(r["val_loss"]) for r in rows),
+          f"train_roberta: evaluation rows {rows}")
+    for r in rl.rounds:
+        emit({"phase": "train_roberta", "arch": cfg.name, "card": card,
+              "round": r["round"], "clients": NLU_CLIENTS,
+              "local_steps": NLU_STEPS, "batch": NLU_B, "seq": NLU_L,
+              "rank": TRAIN_R, "round_s": r["seconds"],
+              "tokens_per_s": NLU_CLIENTS * NLU_STEPS * NLU_B * NLU_L
+              / r["seconds"], "launches": r["launches"],
+              "routes": r["routes"], "losses": r["losses"].tolist()})
+    emit({"phase": "train_roberta", "arch": cfg.name, "card": card,
+          "params": cfg.param_count(), "eval_rows": rows,
+          "main_s": seconds, "launches": launches, "routes": routes,
+          "peak_gib": peak,
+          "kernel_shapes": {k: sorted(v) for k, v in seen.items()}})
+    plain_rl = _run_nlu(plain=True)[1]
+    _backbone_parity("train_roberta", rl, plain_rl, NLU_DELTA_BOUND, first)
+    del rl, plain_rl
+    torch.cuda.empty_cache()
+    return launches, routes
+
+
+def _run_vit(seed, plain):
+    """Two FedGaLore rounds of paper-vit-like on the patch task, each
+    followed by ``FedEngine.evaluate`` (no autograd graph), logged, and
+    the kernel run's loss control (None for the plain run)."""
+    from repro_torch.core.fed import FedConfig, FedEngine
+    from repro_torch.data import FederatedBatcher, patch_classification
+    from repro_torch.launch.steps import galore_target_fn
+    from repro_torch.models import model as model_lib
+    cfg = _full_config("paper-vit-like")
+    params = model_lib.init_params(cfg, seed=seed, device="cuda")
+    task = patch_classification(VIT_EXAMPLES, VIT_CLASSES, VIT_PATCHES,
+                                cfg.d_model, cfg.vocab_size, seed=seed,
+                                text_len=VIT_TEXT)
+    batcher = FederatedBatcher(task, NLU_CLIENTS, VIT_B, alpha=0.5,
+                               seed=seed)
+    engine = FedEngine(
+        FedConfig(method="fedgalore", rank=TRAIN_R, lr=TRAIN_LR,
+                  local_steps=VIT_STEPS, seed=seed),
+        loss_fn=lambda p, b: model_lib.loss_fn(p, cfg, b), params=params,
+        target_fn=galore_target_fn(cfg))
+    ev = batcher.eval_batch(VIT_EVAL)
+    evals = []
+    with _plain_or_kernels(plain), RoundLog() as rl, \
+            ShapeLog(BACKBONE_LOG) as sl:
+        for _ in range(VIT_ROUNDS):
+            engine.run_round(batcher.round_batches(VIT_STEPS))
+            evals.append(engine.evaluate(ev))
+        torch.cuda.synchronize()
+    first = None if plain else _first_step_controls(engine, rl)
+    del engine, params
+    return cfg, rl, sl.seen, evals, first
+
+
+def phase_train_vit(seed, card, checked):
+    """paper-vit-like: two FedGaLore rounds whose batches carry the 196
+    patch embeddings, counted, then again with the plain versions."""
+    torch.cuda.reset_peak_memory_stats()
+    cfg, rl, seen, evals, first = _run_vit(seed, plain=False)
+    launches, routes = rl.launches, rl.routes
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _check_backbone_path("train_vit", rl, seen, checked,
+                         nlu_launches(VIT_STEPS), VIT_STEPS, launches,
+                         routes, VIT_FLASH)
+    check(all(np.isfinite(e) for e in evals), f"train_vit: evaluation "
+          f"losses {evals}")
+    for r in rl.rounds:
+        emit({"phase": "train_vit", "arch": cfg.name, "card": card,
+              "round": r["round"], "clients": NLU_CLIENTS,
+              "local_steps": VIT_STEPS, "batch": VIT_B,
+              "seq": f"{VIT_PATCHES} patches + {VIT_TEXT} tokens",
+              "rank": TRAIN_R, "round_s": r["seconds"],
+              "tokens_per_s": NLU_CLIENTS * VIT_STEPS * VIT_B * VIT_L
+              / r["seconds"], "launches": r["launches"],
+              "routes": r["routes"], "losses": r["losses"].tolist()})
+    _, plain_rl, _, plain_evals, _ = _run_vit(seed, plain=True)
+    emit({"phase": "train_vit", "arch": cfg.name, "card": card,
+          "params": cfg.param_count(), "eval_losses": evals,
+          "plain_eval_losses": plain_evals, "launches": launches,
+          "routes": routes, "peak_gib": peak,
+          "kernel_shapes": {k: sorted(v) for k, v in seen.items()}})
+    _backbone_parity("train_vit", rl, plain_rl, TRAIN_DELTA_BOUND, first)
+    del rl, plain_rl
+    torch.cuda.empty_cache()
+    return launches, routes
 
 
 def _bound(nbytes, flops_by_peak):
@@ -2761,6 +3210,38 @@ def main(argv=None) -> int:
     del params
     torch.cuda.empty_cache()
 
+    # serving path, granite-moe-1b-a400m (MoE) and mistral-nemo-12b
+    gr_err, gr_checked = phase_kernel_checks(gen, GRANITE_SHAPES)
+    cfg, served, gr_launches, gr_routes = phase_serve(
+        args.seed, card, {"lowrank_linear_batched": gr_checked,
+                          "flash_attention": flash_checked},
+        "granite-moe-1b-a400m", GRANITE_PER_FORWARD, "serve_granite",
+        per_prefill=GRANITE_PER_PREFILL)
+    phase_parity(cfg, served, args.seed, phase="parity_granite")
+    del served
+    torch.cuda.empty_cache()
+    nemo_err, nemo_checked = phase_kernel_checks(gen, NEMO_SHAPES)
+    cfg, served, nemo_launches, nemo_routes = phase_serve(
+        args.seed, card, {"lowrank_linear_batched": nemo_checked,
+                          "flash_attention": flash_checked},
+        "mistral-nemo-12b", NEMO_PER_FORWARD, "serve_nemo",
+        per_prefill=NEMO_PER_PREFILL, requests=NEMO_REQUESTS, new=NEMO_NEW)
+    phase_parity(cfg, served, args.seed, phase="parity_nemo",
+                 floor_gate=True)
+    del served
+    torch.cuda.empty_cache()
+
+    # training path, the paper's roberta and vit backbones
+    backbone_checked = {name: train_checked[name][1] for name in
+                        ("lowrank_linear", "galore_precond_step",
+                         "jacobi_eigh")}
+    backbone_checked["flash_attention"] = flash_checked
+    nlu_launches_, nlu_routes = phase_train_roberta(card, backbone_checked)
+    vit_launches, vit_routes = phase_train_vit(args.seed, card,
+                                               backbone_checked)
+    backbone = {"train_roberta": (nlu_launches_, nlu_routes),
+                "train_vit": (vit_launches, vit_routes)}
+
     rows = phase_times(gen, card)
     phase_times(gen, card, RWKV_SHAPES, "rwkv6-1.6b")
     phase_times(gen, card, SC_SHAPES, "starcoder2-7b")
@@ -2782,16 +3263,22 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/lowrank_linear.py:140",
         "launches": (launches["lowrank_linear_batched"]
                      + rwkv_launches["lowrank_linear_batched"]
-                     + sc_launches["lowrank_linear_batched"]),
+                     + sc_launches["lowrank_linear_batched"]
+                     + gr_launches["lowrank_linear_batched"]
+                     + nemo_launches["lowrank_linear_batched"]),
         "launches_by_path": {
             "serve": launches["lowrank_linear_batched"],
             "serve_rwkv": rwkv_launches["lowrank_linear_batched"],
-            "serve_starcoder": sc_launches["lowrank_linear_batched"]},
+            "serve_starcoder": sc_launches["lowrank_linear_batched"],
+            "serve_granite": gr_launches["lowrank_linear_batched"],
+            "serve_nemo": nemo_launches["lowrank_linear_batched"]},
         "launches_by_route": {
             k: sum(rt["lowrank_linear_batched"][k]
-                   for rt in (routes, rwkv_routes, sc_routes))
+                   for rt in (routes, rwkv_routes, sc_routes, gr_routes,
+                              nemo_routes))
             for k in routes["lowrank_linear_batched"]},
-        "max_abs_err": max(max_err, rwkv_ll_err, sc_ll_err),
+        "max_abs_err": max(max_err, rwkv_ll_err, sc_ll_err, gr_err,
+                           nemo_err),
         "ms": per_layer["ms"], "plain_ms": per_layer["plain_ms"],
         "bound_ms": per_layer["bound_ms"], "bound_by": "bytes"
         if all(r["bound_by"] == "bytes" for r in decode) else "operations",
@@ -2852,12 +3339,15 @@ def main(argv=None) -> int:
             kernels[-1]["launches_by_route"] = {
                 k: sum(r["routes"][name][k]
                        for r in rounds + eager_rounds + pop_rounds)
+                + sum(rt[name][k] for _, rt in backbone.values())
                 for k in rounds[0]["routes"][name]}
             eager = sum(r["launches"][name] for r in eager_rounds)
-            kernels[-1]["launches"] += eager + pop_launches[name]
+            kernels[-1]["launches"] += eager + pop_launches[name] + sum(
+                ln[name] for ln, _ in backbone.values())
             kernels[-1]["launches_by_path"] = {
                 "train": train_launches[name], "train_methods": eager,
-                "population": pop_launches[name]}
+                "population": pop_launches[name],
+                **{path: ln[name] for path, (ln, _) in backbone.items()}}
         if name == "jacobi_eigh":
             kernels[-1]["launches_by_path"]["population_masked"] = \
                 pop_launches["jacobi_eigh_masked"]
@@ -2871,7 +3361,8 @@ def main(argv=None) -> int:
                      if r.get("project_back") == back], name)}
                 for mode, back, n in (
                     ("PRECOND_UT", False,
-                     train_launches[name] + pop_launches[name]),
+                     train_launches[name] + pop_launches[name]
+                     + sum(ln[name] for ln, _ in backbone.values())),
                     ("PRECOND_U", True, eager))}
     admit = next(r for r in scan_rows if r["shape"] == "admission prefill")
     kernels.append({
@@ -2894,14 +3385,24 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/flash_attention.py:73",
         "launches": (launches["flash_attention"]
                      + sc_launches["flash_attention"]
-                     + long_launches["flash_attention"]),
+                     + long_launches["flash_attention"]
+                     + gr_launches["flash_attention"]
+                     + nemo_launches["flash_attention"]
+                     + sum(ln["flash_attention"]
+                           for ln, _ in backbone.values())),
         "launches_by_path": {
             "serve": launches["flash_attention"],
             "serve_starcoder": sc_launches["flash_attention"],
-            "long_prefill_starcoder": long_launches["flash_attention"]},
+            "long_prefill_starcoder": long_launches["flash_attention"],
+            "serve_granite": gr_launches["flash_attention"],
+            "serve_nemo": nemo_launches["flash_attention"],
+            **{path: ln["flash_attention"]
+               for path, (ln, _) in backbone.items()}},
         "launches_by_route": {
             k: sum(rt["flash_attention"][k]
-                   for rt in (routes, sc_routes, long_routes))
+                   for rt in (routes, sc_routes, long_routes, gr_routes,
+                              nemo_routes)
+                   + tuple(rt for _, rt in backbone.values()))
             for k in long_routes["flash_attention"]},
         "max_abs_err": flash_err,
         **{k: long_row[k] for k in ("ms", "plain_ms", "bound_ms",

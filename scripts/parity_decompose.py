@@ -1,6 +1,7 @@
 """Split a serving path's end-to-end parity gap by kernel, on one CUDA card.
 
   python3 scripts/parity_decompose.py [--arch rwkv6-1.6b] [--seed 0]
+  python3 scripts/parity_decompose.py --arch mistral-nemo-12b
 
 Builds the full-width model of ``--arch`` with 8 demo adapters of rank 16
 (as ``chip_smoke.py`` does) and runs one prefill of 8 x 128 tokens and 4
@@ -8,7 +9,11 @@ decode steps several ways: every kernel, every plain version, each kernel
 alone (the other kernels' plain versions in their place), the plain path
 twice (determinism), and the plain path with 1 % of the embedding table's
 entries moved by one bf16 ulp (the model's own amplification of
-rounding). The path's kernels: ``lowrank_linear_batched``, and
+rounding). Two planted faults, every kernel on, show what a wrong kernel
+reads: each row's adapter id rolled by one (the adapter a wrong gather in
+``lowrank_linear_batched`` would apply), and for the dense family a
+softmax scale 1 % too large in every ``flash_attention`` call. The
+path's kernels: ``lowrank_linear_batched``, and
 ``rwkv6_scan`` (RWKV6) or ``flash_attention`` (the dense family's
 prefill). Prints one JSON line: for each run, max |logit - plain logit|
 over max |plain logit|, per forward and overall, and greedy agreement.
@@ -57,7 +62,7 @@ def main(argv=None) -> int:
     ids = torch.arange(B, dtype=torch.int32, device="cuda") % G
 
     @torch.inference_mode()
-    def run(p):
+    def run(p, ids=ids):
         st = model_lib.init_decode_state(cfg, B, PROMPT + DECODES,
                                          device="cuda")
         outs = []
@@ -104,6 +109,19 @@ def main(argv=None) -> int:
     for name in kernels:
         with plain_except(name):
             out[f"{name}_alone"] = reading(run(served))
+    out["fault_adapter_ids_rolled"] = reading(run(served, (ids + 1) % G))
+    if not cfg.rwkv:
+        flash = ops.flash_attention
+
+        def wrong_scale(q, k, v, *, scale=None, **kw):
+            scale = q.shape[-1] ** -0.5 if scale is None else scale
+            return flash(q, k, v, scale=1.01 * scale, **kw)
+
+        ops.flash_attention = wrong_scale
+        try:
+            out["fault_flash_scale_1pct"] = reading(run(served))
+        finally:
+            ops.flash_attention = flash
     with ops.plain_kernels():
         out["plain_again"] = reading(run(served))
         emb = served["embed"]["w"]

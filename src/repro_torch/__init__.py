@@ -14,7 +14,10 @@ low-rank apply, the fused GaLore step and the batched Jacobi eigensolver.
 Later slices serve rwkv6-1.6b and starcoder2-7b, put flash attention on
 every dense prefill, and run every method of the paper's Table 1 — the
 LoRA baselines and FedAvg beside the GaLore methods — in
-``core.fed.FedEngine``. Every kernel is CUDA C++ for sm_90a
+``core.fed.FedEngine``, over sampled and faulted populations. The paper's
+own backbones (roberta-, vit- and llama-like), MoE (granite-moe), the
+stub vlm / audio frontends and the training CLI (``launch.train``) run
+through the same entry points. Every kernel is CUDA C++ for sm_90a
 (``kernels/csrc``).
 """
 import torch

@@ -103,6 +103,42 @@ class ArchConfig:
     def n_blocks(self) -> int:
         return self.n_layers // self.block_period()
 
+    # -------------------------------------------------------- accounting ---
+    def param_count(self) -> int:
+        """Analytic parameter count (used for 6·N·D model FLOPs)."""
+        d = self.d_model
+        total = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        for mix, ffn in self.layer_kinds():
+            if mix == "attn":
+                total += d * self.n_heads * self.hd * 2          # wq, wo
+                total += d * self.n_kv_heads * self.hd * 2       # wk, wv
+            elif mix == "mla":
+                total += d * self.q_lora_rank
+                total += self.q_lora_rank * self.n_heads * (self.qk_nope_dim
+                                                            + self.qk_rope_dim)
+                total += d * (self.kv_lora_rank + self.qk_rope_dim)
+                total += self.kv_lora_rank * self.n_heads * (self.qk_nope_dim
+                                                             + self.v_head_dim)
+                total += self.n_heads * self.v_head_dim * d
+            elif mix == "mamba":
+                di = self.mamba_expand * d
+                dtr = max(1, -(-d // 16))
+                total += d * 2 * di + di * (dtr + 2 * self.mamba_d_state)
+                total += dtr * di + di * self.mamba_d_state + di * d
+            elif mix == "rwkv":
+                total += 5 * d * d + d * (5 * 32) + 5 * 32 * d + d * 64 + 64 * d
+            if ffn == "moe":
+                total += d * self.n_experts * self.moe_d_ff * 3
+                total += d * self.n_experts                       # router
+                if self.n_shared_experts:
+                    total += d * self.n_shared_experts * self.moe_d_ff * 3
+            elif ffn == "mlp":
+                mult = 3 if self.mlp_kind == "glu" else 2
+                total += d * self.d_ff * mult
+            elif ffn == "cmix":
+                total += d * self.d_ff * 2 + d * d
+        return int(total)
+
 
 # -------------------------------------------------------------- registry ----
 
@@ -124,7 +160,10 @@ def get_config(name: str) -> ArchConfig:
 
 
 def _load_all():
-    from . import qwen1_5_0_5b, rwkv6_1_6b, starcoder2_7b  # noqa: F401
+    from . import (command_r_35b, granite_moe_1b_a400m,  # noqa: F401
+                   mistral_nemo_12b, musicgen_medium, paper_llama_like,
+                   paper_roberta_like, paper_vit_like, pixtral_12b,
+                   qwen1_5_0_5b, rwkv6_1_6b, starcoder2_7b)
 
 
 def smoke_variant(cfg: ArchConfig) -> ArchConfig:

@@ -41,3 +41,20 @@ def iid_partition(n_examples: int, n_clients: int, seed: int = 0
     rng = np.random.default_rng(seed)
     idx = rng.permutation(n_examples)
     return [np.asarray(part) for part in np.array_split(idx, n_clients)]
+
+
+def heterogeneity_stats(labels: np.ndarray, parts: List[np.ndarray]) -> dict:
+    """Diagnostics: per-client class histograms + mean TV distance to the
+    global distribution (a direct measure of the paper's drift c_i)."""
+    labels = np.asarray(labels)
+    classes = np.unique(labels)
+    global_p = np.array([(labels == c).mean() for c in classes])
+    tvs = []
+    hists = []
+    for idx in parts:
+        li = labels[idx]
+        p = np.array([(li == c).mean() if len(li) else 0.0 for c in classes])
+        hists.append(p)
+        tvs.append(0.5 * np.abs(p - global_p).sum())
+    return {"mean_tv": float(np.mean(tvs)), "per_client_tv": tvs,
+            "hists": np.stack(hists)}

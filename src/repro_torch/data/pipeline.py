@@ -45,16 +45,29 @@ class FederatedBatcher:
                       clients: Optional[List[int]] = None) -> Dict:
         """-> dict of arrays with leading (K, T, B) axes."""
         clients = clients if clients is not None else range(len(self.parts))
-        toks, labs = [], []
+        toks, labs, embs = [], [], []
         for ci in clients:
             idx = self._next_idx(ci, local_steps * self.batch_size)
             idx = idx.reshape(local_steps, self.batch_size)
             toks.append(self.task.tokens[idx])
             labs.append(self.task.labels[idx])
-        return {"tokens": np.stack(toks), "labels": np.stack(labs)}
+            if self.task.embeds is not None:
+                embs.append(self.task.embeds[idx])
+        batch = {"tokens": np.stack(toks), "labels": np.stack(labs)}
+        if embs:
+            batch["embeds"] = np.stack(embs)
+        return batch
+
+    def sample_clients(self, k: int) -> List[int]:
+        """Partial participation: uniform k-of-M (paper protocol K=5/50)."""
+        return sorted(self.rng.choice(len(self.parts), size=k,
+                                      replace=False).tolist())
 
     def eval_batch(self, n: int, seed: int = 123) -> Dict:
         rng = np.random.default_rng(seed)
         idx = rng.choice(len(self.task.tokens), size=n, replace=False)
-        return {"tokens": self.task.tokens[idx],
-                "labels": self.task.labels[idx]}
+        batch = {"tokens": self.task.tokens[idx],
+                 "labels": self.task.labels[idx]}
+        if self.task.embeds is not None:
+            batch["embeds"] = self.task.embeds[idx]
+        return batch

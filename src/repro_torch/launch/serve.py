@@ -29,14 +29,20 @@ tables (:mod:`repro_torch.launch.adapters`). Everything runs under
 ``torch.inference_mode()`` on ``device`` (default ``"cuda"``; the CPU only
 when asked).
 
-Two model families serve: the dense GQA family (qwen1.5-0.5b, the CLI's
-default ``--arch``) and RWKV6 (rwkv6-1.6b), whose recurrent state takes the
-place of the KV cache:
+Every registered config serves: the GQA attention families (qwen1.5-0.5b,
+the CLI's default ``--arch``, starcoder2-7b, mistral-nemo-12b,
+command-r-35b, the paper's backbones, the vlm / audio backbones on their
+tokens, and granite-moe-1b-a400m, whose experts and routers stay frozen:
+the adapters wrap the attention projections only) and RWKV6
+(rwkv6-1.6b), whose recurrent state takes the place of the KV cache:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
       --adapters 8 --adapter-rank 16 --mode continuous
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
       --adapters 8 --adapter-rank 16 --mode continuous
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch granite-moe-1b-a400m --adapters 8 --adapter-rank 16 \
+      --mode continuous
 """
 from __future__ import annotations
 

@@ -39,22 +39,28 @@ def _to_tensor(a, device, dtype) -> torch.Tensor:
 
 def params_from_jax(tree_of_numpy: PyTree, device, dtype=None) -> PyTree:
     """The port's params with the JAX tree's keys and dtypes on
-    ``device``. ``dtype`` (optional) casts the floating weights; adapter
-    tables and scales stay fp32, the layout the serving kernel takes."""
+    ``device``; MoE leaves (the fp32 ``router``, the stacked (nb, E, ·, ·)
+    experts, ``shared``) are ordinary leaves. ``dtype`` (optional) casts
+    the floating weights; MoE routers stay fp32, as both packages keep
+    them, and adapter tables and scales stay fp32, the layout the serving
+    kernel takes."""
     def is_adapter(x):
         return (isinstance(x, tuple)
                 and type(x).__name__ == MultiAdapterDelta.__name__)
 
-    def convert(x):
+    def convert(path, x):
         if is_adapter(x):
             return MultiAdapterDelta(
                 w=_to_tensor(x.w, device, dtype),
                 bases=_to_tensor(x.bases, device, None),
                 rts=_to_tensor(x.rts, device, None),
                 scales=_to_tensor(x.scales, device, None))
-        return _to_tensor(x, device, dtype)
+        router = tree.path_str(path).split("/")[-1] == "router"
+        return _to_tensor(x, device, None if router else dtype)
 
-    return tree.tree_map(convert, tree_of_numpy, is_leaf=is_adapter)
+    leaves, treedef = tree.tree_flatten_with_path(tree_of_numpy,
+                                                  is_leaf=is_adapter)
+    return treedef.unflatten([convert(p, x) for p, x in leaves])
 
 
 def _is_node(name):

@@ -373,3 +373,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x32[..., : hd // 2], x32[..., hd // 2:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(positions: torch.Tensor, d_model: int
+                         ) -> torch.Tensor:
+    """Any-length sinusoidal embeddings (musicgen, the paper's roberta and
+    vit backbones — no learned table): (..., d_model) fp32, ``sin`` over
+    the first half, ``cos`` over the second."""
+    half = d_model // 2
+    log_base = torch.log(torch.tensor(10000.0, dtype=torch.float32,
+                                      device=positions.device))
+    freqs = torch.exp(-log_base * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

@@ -1,4 +1,4 @@
-"""Config-driven decoder, dense family and RWKV6 (port of
+"""Config-driven decoder: the attention families and RWKV6 (port of
 ``repro/models/model.py``:
 ``init_params``, ``forward``, ``loss_fn``, ``prefill``, ``decode_step`` and
 the decode state).
@@ -14,11 +14,13 @@ return it with the new position. ``forward`` and ``loss_fn`` are the
 training read: autograd runs through the loop, with no activation
 checkpointing.
 
-Ported: the dense family (GQA attention + dense MLP, RoPE or no
-positional embedding) for all five entry points, and RWKV6 (time-mix +
-channel-mix, ``models/rwkv.py``) for ``init_params``, ``init_decode_state``,
+Ported: GQA attention with a dense MLP or an MoE FFN (``models/moe.py``),
+RoPE, sinusoidal or no positions, and the vlm / audio backbones' prefix
+of frontend embeddings (``embeds``, from ``models/frontend.py``'s stubs)
+for all five entry points; and RWKV6 (time-mix + channel-mix,
+``models/rwkv.py``) for ``init_params``, ``init_decode_state``,
 ``prefill`` and ``decode_step`` — serving. RWKV ``forward``/``loss_fn``
-(training) wait for a backward of ``rwkv6_scan``; other families raise
+(training) wait for a backward of ``rwkv6_scan``; MLA and Mamba raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -31,11 +33,16 @@ from .. import resolve_device
 from ..configs.base import ArchConfig
 from ..utils import tree
 from . import attention as attn_lib
+from . import moe as moe_lib
 from . import rwkv as rwkv_lib
 from .layers import (apply_norm, dense_init, glu_mlp, glu_mlp_init, mlp,
-                     mlp_init, norm_init)
+                     mlp_init, norm_init, sinusoidal_positions)
 
 PyTree = Any
+
+
+_LATER = {"mla": "MLA (ROADMAP Queue 1 item 11.5)",
+          "mamba": "Mamba and the hybrids (ROADMAP Queue 1 item 11.6)"}
 
 
 def _check_ported(cfg: ArchConfig, training: bool = False) -> None:
@@ -44,20 +51,24 @@ def _check_ported(cfg: ArchConfig, training: bool = False) -> None:
         if training:
             raise NotImplementedError(
                 f"{cfg.name}: RWKV training is a later slice of the port — "
-                "rwkv6_scan has no backward yet (ROADMAP Queue 1 item 11); "
-                "serving (prefill, decode_step) is ported")
+                "rwkv6_scan has no backward yet (ROADMAP Queue 1 item "
+                "11.4); serving (prefill, decode_step) is ported")
         return
-    if kinds != {("attn", "mlp")} or cfg.pos_emb not in ("rope", "none"):
+    for mix, _ in kinds:
+        if mix in _LATER:
+            raise NotImplementedError(
+                f"{cfg.name}: {_LATER[mix]} is a later slice of the port")
+    if (not kinds <= {("attn", "mlp"), ("attn", "moe")}
+            or cfg.pos_emb not in ("rope", "none", "sinusoidal")):
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {sorted(kinds)} / pos_emb "
-            f"{cfg.pos_emb!r} — the port runs the dense family and RWKV6 "
-            "serving only so far (ROADMAP Queue 1 item 11: other model "
-            "families)")
+            f"{cfg.pos_emb!r} are not ported (ROADMAP Queue 1 item 11)")
 
 
 # ------------------------------------------------------------------ init ----
 
-def _init_stacked_layer(gen, cfg: ArchConfig, n_blocks: int) -> dict:
+def _init_stacked_layer(gen, cfg: ArchConfig, n_blocks: int,
+                        ffn: str) -> dict:
     """One period position's params, every leaf stacked (n_blocks, ...)."""
     dtype, dev, lead = cfg.param_dtype, gen.device, (n_blocks,)
     if cfg.rwkv:
@@ -69,13 +80,20 @@ def _init_stacked_layer(gen, cfg: ArchConfig, n_blocks: int) -> dict:
                                    lead=lead),
                 "cmix": rwkv_lib.channel_mix_init(gen, cfg.d_model, cfg.d_ff,
                                                   dtype, lead=lead)}
-    init_mlp = glu_mlp_init if cfg.mlp_kind == "glu" else mlp_init
-    return {"norm1": norm_init(cfg.d_model, cfg.norm, device=dev, lead=lead),
-            "attn": attn_lib.gqa_init(gen, cfg.d_model, cfg.n_heads,
-                                      cfg.n_kv_heads, cfg.hd, cfg.qkv_bias,
-                                      dtype, lead=lead),
-            "norm2": norm_init(cfg.d_model, cfg.norm, device=dev, lead=lead),
-            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, lead=lead)}
+    p = {"norm1": norm_init(cfg.d_model, cfg.norm, device=dev, lead=lead),
+         "attn": attn_lib.gqa_init(gen, cfg.d_model, cfg.n_heads,
+                                   cfg.n_kv_heads, cfg.hd, cfg.qkv_bias,
+                                   dtype, lead=lead),
+         "norm2": norm_init(cfg.d_model, cfg.norm, device=dev, lead=lead)}
+    if ffn == "moe":
+        p["moe"] = moe_lib.moe_init(gen, cfg.d_model, cfg.n_experts,
+                                    cfg.moe_d_ff or cfg.d_ff,
+                                    cfg.n_shared_experts, dtype=dtype,
+                                    lead=lead)
+    else:
+        init_mlp = glu_mlp_init if cfg.mlp_kind == "glu" else mlp_init
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, lead=lead)
+    return p
 
 
 def init_params(cfg: ArchConfig, seed: int = 0,
@@ -88,12 +106,12 @@ def init_params(cfg: ArchConfig, seed: int = 0,
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    period, n_blocks = cfg.block_period(), cfg.n_blocks()
+    kinds = cfg.layer_kinds()[: cfg.block_period()]
     params = {
         "embed": {"w": dense_init(gen, (cfg.vocab_size, cfg.d_model),
                                   dtype=cfg.param_dtype)},
-        "blocks": [_init_stacked_layer(gen, cfg, n_blocks)
-                   for _ in range(period)],
+        "blocks": [_init_stacked_layer(gen, cfg, cfg.n_blocks(), ffn)
+                   for _, ffn in kinds],
         "final_norm": norm_init(cfg.d_model, cfg.norm, device=dev),
     }
     if not cfg.tie_embeddings:
@@ -110,8 +128,16 @@ def _block(stacked: PyTree, i: int) -> PyTree:
 
 # --------------------------------------------------------------- forward ----
 
-def _embed(params, cfg: ArchConfig, tokens):
-    return params["embed"]["w"][tokens]
+def _embed(params, cfg: ArchConfig, tokens, embeds=None):
+    """Token embeddings after the frontend's ``embeds`` prefix (B, F, D),
+    with sinusoidal positions over the whole sequence, prefix included."""
+    h = params["embed"]["w"][tokens]
+    if embeds is not None:
+        h = torch.cat([embeds.to(h.dtype), h], dim=1)
+    if cfg.pos_emb == "sinusoidal":
+        pos = torch.arange(h.shape[1], device=h.device)
+        h = h + sinusoidal_positions(pos, cfg.d_model)[None].to(h.dtype)
+    return h
 
 
 def _logits(params, cfg: ArchConfig, h):
@@ -122,23 +148,28 @@ def _logits(params, cfg: ArchConfig, h):
 
 
 def _ffn(lp, cfg: ArchConfig, h):
+    """The layer's FFN with its residual: (h, the moe aux loss — 0.0 for a
+    dense MLP)."""
     x = apply_norm(h, lp["norm2"], cfg.norm)
+    if "moe" in lp:
+        out, aux = moe_lib.moe_forward(lp["moe"], x, k=cfg.experts_per_token,
+                                       act=cfg.act,
+                                       capacity_factor=cfg.capacity_factor)
+        return h + out, aux
     if cfg.mlp_kind == "glu":
-        return h + glu_mlp(lp["mlp"], x, cfg.act)
-    return h + mlp(lp["mlp"], x, cfg.act)
+        return h + glu_mlp(lp["mlp"], x, cfg.act), 0.0
+    return h + mlp(lp["mlp"], x, cfg.act), 0.0
 
 
 def forward(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor,
             embeds=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence causal forward. Returns (fp32 logits, moe aux loss —
-    zero for the dense family)."""
+    """Full-sequence causal forward over the ``embeds`` prefix (B, F, D)
+    and the tokens. Returns (fp32 logits over both, moe aux loss summed
+    over the layers — zero without MoE)."""
     _check_ported(cfg, training=True)
-    if embeds is not None:
-        raise NotImplementedError(
-            "frontend embeddings belong to the vlm/audio families (ROADMAP "
-            "Queue 1 item 11: other model families)")
-    h = _embed(params, cfg, tokens)
+    h = _embed(params, cfg, tokens, embeds)
     positions = torch.arange(h.shape[1], device=h.device)
+    aux = torch.zeros((), device=h.device)
     for i in range(cfg.n_blocks()):
         for j in range(cfg.block_period()):
             lp = _block(params["blocks"][j], i)
@@ -146,8 +177,9 @@ def forward(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor,
             out, _ = attn_lib.gqa_forward(
                 lp["attn"], x, positions, attn_chunk=cfg.attn_chunk,
                 **_attn_kwargs(cfg))
-            h = _ffn(lp, cfg, h + out)
-    return _logits(params, cfg, h), torch.zeros((), device=h.device)
+            h, a = _ffn(lp, cfg, h + out)
+            aux = aux + a
+    return _logits(params, cfg, h), aux
 
 
 def loss_fn(params: PyTree, cfg: ArchConfig, batch, aux_coef: float = 0.01
@@ -228,6 +260,11 @@ def decode_step(params: PyTree, cfg: ArchConfig, token: torch.Tensor,
     """One new token for every sequence in the batch. token (B,) int32.
     Returns (fp32 logits (B, V), state advanced by one)."""
     h = params["embed"]["w"][token][:, None, :]       # (B, 1, D)
+    if cfg.pos_emb == "sinusoidal":
+        t = state.t
+        pos = t[:, None] if t.ndim else t[None]       # (B, 1) | (1,)
+        emb = sinusoidal_positions(pos, cfg.d_model)
+        h = h + (emb if t.ndim else emb[None]).to(h.dtype)
     for i in range(cfg.n_blocks()):
         for j in range(cfg.block_period()):
             lp = _block(params["blocks"][j], i)
@@ -238,17 +275,19 @@ def decode_step(params: PyTree, cfg: ArchConfig, token: torch.Tensor,
             x = apply_norm(h, lp["norm1"], cfg.norm)
             out, _ = attn_lib.gqa_decode(lp["attn"], x, st, state.t,
                                          **_attn_kwargs(cfg))
-            h = _ffn(lp, cfg, h + out)
+            h, _ = _ffn(lp, cfg, h + out)
     logits = _logits(params, cfg, h)[:, 0, :]
     return logits, DecodeState(t=state.t + 1, layers=state.layers)
 
 
 def prefill(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor,
-            state: DecodeState) -> Tuple[torch.Tensor, DecodeState]:
-    """Process a prompt, filling a fresh state's caches (RWKV: its
-    recurrent state) in place. Returns (last-position fp32 logits, state
-    with 0-d ``t = L``)."""
-    h = _embed(params, cfg, tokens)
+            state: DecodeState, embeds=None
+            ) -> Tuple[torch.Tensor, DecodeState]:
+    """Process a prompt after its ``embeds`` prefix, filling a fresh
+    state's caches (RWKV: its recurrent state) in place. Returns
+    (last-position fp32 logits, state with 0-d ``t`` = prefix + prompt
+    length)."""
+    h = _embed(params, cfg, tokens, embeds)
     l_total = h.shape[1]
     positions = torch.arange(l_total, device=h.device)
     for i in range(cfg.n_blocks()):
@@ -263,7 +302,7 @@ def prefill(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor,
                 lp["attn"], x, positions, attn_chunk=cfg.attn_chunk,
                 **_attn_kwargs(cfg))
             attn_lib.kv_cache_write(st, k, v, 0)
-            h = _ffn(lp, cfg, h + out)
+            h, _ = _ffn(lp, cfg, h + out)
     logits = _logits(params, cfg, h[:, -1:, :])[:, 0, :]
     return logits, DecodeState(
         t=torch.tensor(l_total, dtype=torch.int32, device=h.device),
