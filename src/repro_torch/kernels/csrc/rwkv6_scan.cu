@@ -11,6 +11,15 @@
 // (zeros). Writes y (B, L, H, D) in r's type and s_out (B, H, D, D) fp32.
 // Any L (decode is L = 1, L = 0 copies s0), 1 <= D <= 64.
 //
+// Checkpoint mode (ckpt not null; training, for csrc/rwkv6_scan_bwd.cu):
+// the state before steps 0, every, 2 every, ... is also written, fp32
+// row-major, into ckpt (B, H, ceil(L / every), D, D). `every` is a
+// multiple of the steps a group reduces and divides the staged chunk, so
+// each checkpoint falls on a group's first step. The arithmetic is the
+// same in both modes; the mode adds B H ceil(L / every) D^2 4 bytes of
+// writes (32 MiB for rwkv6-1.6b's training layer, (4, 128, 32, 64), at
+// every = 8).
+//
 // Arithmetic order, shared bit for bit with the plain version
 // (ref.rwkv6_scan_ref): kv = k_i v_j; p_i = r_i (S_ij + u_i kv);
 // S_ij <- w_i S_ij + kv, each product and sum rounded on its own
@@ -254,6 +263,17 @@ __device__ __forceinline__ void steps(const T* sr, const T* sk, const T* sv,
   }
 }
 
+// This lane's rows of column j of the state, into a checkpoint (D x D,
+// row-major); rows and columns at or past D are padding.
+template <int RHO>
+__device__ __forceinline__ void write_state(float* ck, const float (&S)[RHO],
+                                            int q, int j, int D) {
+  if (j >= D) return;
+#pragma unroll
+  for (int a = 0; a < RHO; ++a)
+    if (RHO * q + a < D) ck[(size_t)(RHO * q + a) * D + j] = S[a];
+}
+
 // Block x = (b h, column block); thread = (column c, lane q), q fastest:
 // lane q of column j0 + c holds rows [RHO q, RHO q + RHO).
 template <int RHO, int GROUP, typename T, typename TW>
@@ -261,7 +281,8 @@ __global__ void __launch_bounds__(MAX_THREADS, 2)
 wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
             const T* __restrict__ v, const TW* __restrict__ w,
             const float* __restrict__ u, const float* __restrict__ s0,
-            T* __restrict__ y, float* __restrict__ s_out, int L, int H,
+            T* __restrict__ y, float* __restrict__ s_out,
+            float* __restrict__ ckpt, int every, int L, int H,
             int D, int cols, int col_blocks, int staged, int vec) {
   constexpr int LANES = TREE / RHO;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -315,6 +336,7 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
   // block's threads cover LANES rows a pass, so a thread moves RHO
   // elements, all its loads in flight before its first store.
   const size_t sbase = (size_t)bh * D * D;
+  const size_t nck = ckpt != nullptr ? (L + every - 1) / every : 0;
   const int ti = tid / cols, tc = tid - ti * cols;
   const bool tj = j0 + tc < D;
   {
@@ -344,6 +366,10 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
       cp_wait<0>();
     __syncthreads();                   // ... every thread's
     for (int s = 0; s < n; s += GROUP) {
+      if (ckpt != nullptr && (t + s) % every == 0)
+        write_state<RHO>(ckpt + (sbase * nck + (size_t)((t + s) / every) *
+                                                   D * D),
+                         S, q, j, D);
       T* yp = y + base + (size_t)(t + s) * step + jv;
       const int cnt = n - s;
 #define WKV6_STEPS(FULL, MASK)                                            \
@@ -377,9 +403,9 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
 
 template <int RHO, int GROUP, typename T, typename TW>
 int launch(const void* r, const void* k, const void* v, const void* w,
-           const float* u, const float* s0, void* y, float* s_out, int B,
-           int L, int H, int D, int cols, int col_blocks, int staged,
-           cudaStream_t stream) {
+           const float* u, const float* s0, void* y, float* s_out,
+           float* ckpt, int every, int B, int L, int H, int D, int cols,
+           int col_blocks, int staged, cudaStream_t stream) {
   constexpr int LANES = TREE / RHO;
   const int threads = cols * LANES;
   if (threads > MAX_THREADS || threads % 32 != 0 || cols * col_blocks < D)
@@ -404,7 +430,8 @@ int launch(const void* r, const void* k, const void* v, const void* w,
   kern<<<B * H * col_blocks, threads, smem, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const TW*>(w), u, s0,
-      static_cast<T*>(y), s_out, L, H, D, cols, col_blocks, staged, vec);
+      static_cast<T*>(y), s_out, ckpt, every, L, H, D, cols, col_blocks,
+      staged, vec);
   return (int)cudaGetLastError();
 }
 
@@ -412,12 +439,12 @@ int launch(const void* r, const void* k, const void* v, const void* w,
 template <typename T, typename TW>
 int by_plan(int rho, int group, const void* r, const void* k, const void* v,
             const void* w, const float* u, const float* s0, void* y,
-            float* s_out, int B, int L, int H, int D, int cols,
-            int col_blocks, int staged, cudaStream_t st) {
+            float* s_out, float* ckpt, int every, int B, int L, int H, int D,
+            int cols, int col_blocks, int staged, cudaStream_t st) {
 #define WKV6_PLAN(R, G)                                                    \
   if (rho == R && group == G)                                              \
-    return launch<R, G, T, TW>(r, k, v, w, u, s0, y, s_out, B, L, H, D,    \
-                               cols, col_blocks, staged, st);
+    return launch<R, G, T, TW>(r, k, v, w, u, s0, y, s_out, ckpt, every,   \
+                               B, L, H, D, cols, col_blocks, staged, st);
   WKV6_PLAN(4, 8) WKV6_PLAN(4, 1) WKV6_PLAN(16, 8) WKV6_PLAN(16, 1)
 #undef WKV6_PLAN
   return (int)cudaErrorInvalidValue;
@@ -429,23 +456,28 @@ int by_plan(int rho, int group, const void* r, const void* k, const void* v,
 // staged are kernels/rwkv6_scan.py::plan's: rho rows a lane, group steps
 // reduced together, cols columns a block, col_blocks blocks per (b, h),
 // staged steps a shared-memory slot. rkv_bf16: 1 when r, k, v (and y) are
-// bf16, 0 for fp32; w_bf16 likewise for w. s0 may be null. Returns
-// cudaErrorInvalidConfiguration when the staged steps do not fit in the
-// device's shared memory per block, else cudaGetLastError().
+// bf16, 0 for fp32; w_bf16 likewise for w. s0 may be null. ckpt null runs
+// the serving mode; else the checkpoint mode writes a state every `every`
+// steps (a multiple of group that divides staged when L > staged).
+// Returns cudaErrorInvalidConfiguration when the staged steps do not fit
+// in the device's shared memory per block, else cudaGetLastError().
 extern "C" int rwkv6_scan_launch(const void* r, const void* k, const void* v,
                                  const void* w, const float* u,
                                  const float* s0, void* y, float* s_out,
-                                 int B, int L, int H, int D, int rho,
-                                 int group, int cols, int col_blocks,
-                                 int staged, int rkv_bf16, int w_bf16,
-                                 void* stream) {
+                                 float* ckpt, int every, int B, int L, int H,
+                                 int D, int rho, int group, int cols,
+                                 int col_blocks, int staged, int rkv_bf16,
+                                 int w_bf16, void* stream) {
   if (D < 1 || D > TREE || staged < 1)
+    return (int)cudaErrorInvalidValue;
+  if (ckpt != nullptr && (every < 1 || every % group != 0 ||
+                          (L > staged && staged % every != 0)))
     return (int)cudaErrorInvalidValue;
   if (B * H == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define WKV6_TYPES(T, TW)                                                  \
-  return by_plan<T, TW>(rho, group, r, k, v, w, u, s0, y, s_out, B, L, H, D, \
-                        cols, col_blocks, staged, st)
+  return by_plan<T, TW>(rho, group, r, k, v, w, u, s0, y, s_out, ckpt,      \
+                        every, B, L, H, D, cols, col_blocks, staged, st)
   if (rkv_bf16 && w_bf16) WKV6_TYPES(__nv_bfloat16, __nv_bfloat16);
   if (rkv_bf16) WKV6_TYPES(__nv_bfloat16, float);
   if (w_bf16) WKV6_TYPES(float, __nv_bfloat16);

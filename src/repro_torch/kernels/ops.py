@@ -20,7 +20,7 @@ from . import lowrank_linear as _ll
 from . import rwkv6_scan as _rwkv
 from .ref import (flash_attention_ref, galore_adamw_ref, galore_precond_ref,
                   jacobi_eigh_ref, lowrank_linear_batched_ref,
-                  lowrank_linear_ref, rwkv6_scan_ref)
+                  lowrank_linear_ref, rwkv6_scan_bwd_ref, rwkv6_scan_ref)
 
 MAX_JACOBI_DIM = _eigh.MAX_JACOBI_DIM
 _PLAIN = [0]   # depth of open plain_kernels() contexts
@@ -126,11 +126,59 @@ def galore_adamw_step(w, g, basis, m, v, count, *, side=None, b1=0.9,
         bias_correction=bias_correction)
 
 
+class _Rwkv6Scan(torch.autograd.Function):
+    """The WKV recurrence with its backward: on a CUDA tensor the forward
+    kernel in its checkpoint mode and ``rwkv6_scan_bwd``; on the CPU or
+    under :func:`plain_kernels`, ``rwkv6_scan_ref`` and
+    ``rwkv6_scan_bwd_ref`` (which recomputes the states from s0). The
+    choice is made once, at the forward, and the backward follows it."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.kernel, ctx.has_s0 = _kernel(r), s0 is not None
+        if ctx.kernel:
+            y, s_final, ck = _rwkv.rwkv6_scan(r, k, v, w, u, s0, chunk=chunk,
+                                              checkpoints=True)
+            ctx.save_for_backward(r, k, v, w, u, ck)
+        else:
+            y, s_final = rwkv6_scan_ref(r, k, v, w, u, s0)
+            ctx.save_for_backward(r, k, v, w, u, s0)
+        return y, s_final
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        r, k, v, w, u, start = ctx.saved_tensors
+        dy = torch.zeros_like(r) if dy is None else dy.to(r.dtype)
+        ds = None if ds is None else ds.float()
+        if ctx.kernel:
+            grads = _rwkv.rwkv6_scan_bwd(r, k, v, w, u, start,
+                                         dy.contiguous(),
+                                         None if ds is None
+                                         else ds.contiguous())
+        else:
+            grads = rwkv6_scan_bwd_ref(r, k, v, w, u, start, dy, ds)
+        dr, dk, dv, dw, du, ds0 = grads
+        return dr, dk, dv, dw, du, ds0 if ctx.has_s0 else None, None
+
+
 def rwkv6_scan(r, k, v, w, u, s0=None, *, chunk=128):
     """The RWKV6 WKV recurrence over any L — see ``kernels.rwkv6_scan``.
     r, k, v, w (B, L, H, D); u (H, D); s0 (B, H, D, D) or None. Returns
-    (y in r's dtype, s_final fp32). u and s0 are taken as fp32."""
+    (y in r's dtype, s_final fp32). u and s0 are taken as fp32.
+
+    Differentiable on every device: with grad mode on and an input that
+    requires grad, the call records :class:`_Rwkv6Scan` (the kernel pair
+    on the card, writing the forward's checkpoints; the plain pair
+    elsewhere). Otherwise it launches the forward alone, with no saved
+    state, bit for bit ``rwkv6_scan_ref``."""
     _one_device("rwkv6_scan", r, k, v, w, u, s0)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (r, k, v, w, u, s0)):
+        return _Rwkv6Scan.apply(
+            r.contiguous(), k.contiguous(), v.contiguous(), w.contiguous(),
+            u.float().contiguous(),
+            None if s0 is None else s0.float().contiguous(), chunk)
     if not _kernel(r):
         return rwkv6_scan_ref(r, k, v, w, u, s0)
     return _rwkv.rwkv6_scan(

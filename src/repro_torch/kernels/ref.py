@@ -192,7 +192,25 @@ def _pairwise_sum(x):
     return x[..., 0, :]
 
 
-def rwkv6_scan_ref(r, k, v, w, u, s0=None):
+def _wkv_states(k, v, w, s0):
+    """The states the recurrence walks through: (S_0 … S_{L-1} stacked on
+    dim 1, (B, L, H, D, D), S_t the state before step t; S_L) fp32, each
+    step S ← w_t S + k_t v_tᵀ rounded as the CUDA kernels round it."""
+    b, l, h, d = k.shape
+    s = (torch.zeros((b, h, d, d), dtype=torch.float32, device=k.device)
+         if s0 is None else s0.float())
+    states = []
+    for t in range(l):
+        states.append(s)
+        kv = k[:, t].float()[..., :, None] * v[:, t].float()[..., None, :]
+        s = w[:, t].float()[..., None] * s + kv
+    stacked = (torch.stack(states, dim=1) if states else
+               torch.zeros((b, 0, h, d, d), dtype=torch.float32,
+                           device=k.device))
+    return stacked, s
+
+
+def rwkv6_scan_ref(r, k, v, w, u, s0=None, *, every=0):
     """The RWKV6 WKV recurrence, per (b, h), over any length L:
 
         y_t = r_t · (S + diag(u) k_t v_tᵀ);   S ← diag(w_t) S + k_t v_tᵀ
@@ -200,21 +218,74 @@ def rwkv6_scan_ref(r, k, v, w, u, s0=None):
     r, k, v, w (B, L, H, D); u (H, D); s0 (B, H, D, D) or None (zeros).
     The state and every product are fp32, each product and sum rounded on
     its own, and the sum over i is :func:`_pairwise_sum`: the CUDA
-    kernel's arithmetic in its order, so the two agree bit for bit.
-    Returns (y (B, L, H, D) in r's dtype, s_final (B, H, D, D) fp32)."""
+    kernel's arithmetic in its order, so the two agree bit for bit. The
+    states are walked step by step, then every y_t is computed at once
+    from them. Returns (y (B, L, H, D) in r's dtype, s_final (B, H, D, D)
+    fp32), and with ``every`` > 0 a third output, the states the
+    checkpoint mode writes: (B, H, ⌈L / every⌉, D, D) fp32, entry n the
+    state before step n·every."""
+    states, s = _wkv_states(k, v, w, s0)
+    kv = k.float()[..., :, None] * v.float()[..., None, :]   # (B,L,H,D,D)
+    u32 = u.float()[None, None, :, :, None]
+    y = _pairwise_sum(r.float()[..., :, None] * (states + u32 * kv))
+    if not every:
+        return y.to(r.dtype), s
+    return y.to(r.dtype), s, states[:, ::every].transpose(1, 2)
+
+
+def _row_sum(x):
+    """:func:`_pairwise_sum` over the last dim (the columns j of a state):
+    the WKV backward kernel's order for a row's sums."""
+    return _pairwise_sum(x.mT)
+
+
+def rwkv6_scan_bwd_ref(r, k, v, w, u, s0, dy, ds_final=None):
+    """The backward of :func:`rwkv6_scan_ref`: the cotangents of (r, k, v,
+    w, u, s0) given those of y (``dy``, (B, L, H, D)) and of the final
+    state (``ds_final``, (B, H, D, D) or None for zeros).
+
+    Per (b, h), G = ∂L/∂S (D×D fp32) starts at ds_final and walks back
+    over t = L-1 … 0 with S = S_{t-1}, the state before step t:
+
+        A = r_t ⊗ dy_t;   dkv = G + diag(u) A
+        dr_t = Σ_j S dy_t + (u ∘ k_t)(v_t · dy_t)
+        dk_t = Σ_j dkv v_t;   dv_t = Σ_i k_t dkv;   dw_t = Σ_j G ∘ S
+        du += (r_t ∘ k_t)(v_t · dy_t);   G ← diag(w_t) G + A
+
+    and ds0 = G. The states S_{t-1} are recomputed forward from s0 as
+    :func:`rwkv6_scan_ref` computes them (bit for bit the states the
+    forward's checkpoint mode writes), never recovered by dividing by
+    w_t, which underflows to 0 in fp32. Every product and sum is rounded
+    on its own and each Σ (and v·dy) is :func:`_pairwise_sum`'s tree:
+    ``csrc/rwkv6_scan_bwd.cu``'s arithmetic in its order. The two walks
+    (S forward, G back) go step by step; the sums of every step are then
+    taken at once. Returns (dr, dk, dv in r's dtype, dw in w's dtype, du
+    (H, D) fp32 — the per-row sums over b added by ``torch.sum`` —, ds0
+    (B, H, D, D) fp32)."""
     b, l, h, d = r.shape
-    s = (torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
-         if s0 is None else s0.float())
-    u32 = u.float()[None, :, :, None]
-    ys = []
-    for t in range(l):
-        r_t, k_t, v_t, w_t = (x[:, t].float() for x in (r, k, v, w))
-        kv = k_t[..., :, None] * v_t[..., None, :]          # (B, H, D, D)
-        ys.append(_pairwise_sum(r_t[..., :, None] * (s + u32 * kv)))
-        s = w_t[..., None] * s + kv
-    y = (torch.stack(ys, dim=1) if ys else
-         torch.zeros((b, 0, h, d), dtype=torch.float32, device=r.device))
-    return y.to(r.dtype), s
+    states, _ = _wkv_states(k, v, w, s0)
+    r32, k32, v32, w32, dy32 = (x.float() for x in (r, k, v, w, dy))
+    a = r32[..., :, None] * dy32[..., None, :]              # (B,L,H,D,D)
+    g = (torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+         if ds_final is None else ds_final.float())
+    gs = [None] * l                                         # ∂L/∂S_{t+1}
+    for t in reversed(range(l)):
+        gs[t] = g
+        g = w32[:, t][..., None] * g + a[:, t]
+    gs = torch.stack(gs, dim=1) if gs else torch.zeros_like(states)
+    u32 = u.float()[None, None]                             # (1, 1, H, D)
+    dkv = gs + u32[..., :, None] * a
+    vdy = _pairwise_sum((v32 * dy32)[..., :, None])         # (B, L, H, 1)
+    dr = _row_sum(states * dy32[..., None, :]) + (u32 * k32) * vdy
+    dk = _row_sum(dkv * v32[..., None, :])
+    dv = _pairwise_sum(k32[..., :, None] * dkv)
+    dw = _row_sum(gs * states)
+    terms = (r32 * k32) * vdy
+    du = torch.zeros((b, h, d), dtype=torch.float32, device=r.device)
+    for t in reversed(range(l)):
+        du = du + terms[:, t]
+    return (dr.to(r.dtype), dk.to(r.dtype), dv.to(r.dtype), dw.to(w.dtype),
+            du.sum(0), g)
 
 
 FLASH_NEG = -1e30        # masked scores, finite as in the JAX package

@@ -16,6 +16,22 @@ column's lanes — so the two agree bit for bit. The time steps are staged
 in shared memory with ``cp.async``. Unlike the Pallas kernel it takes any
 L — decode is L = 1 and prompts are ragged. Its plain version is
 ``ref.rwkv6_scan_ref``.
+
+Training adds two things (``ops.rwkv6_scan``'s autograd Function):
+- the forward's checkpoint mode (``checkpoints=True``), which also writes
+  the state before every ``CKPT_EVERY``-th step;
+- :func:`rwkv6_scan_bwd`, the backward (``csrc/rwkv6_scan_bwd.cu``). It
+  replaces no TPU kernel: the Pallas ``rwkv6_scan`` is forward only, and
+  the JAX package trains RWKV6 through XLA's derivative of the
+  ``lax.scan`` in ``repro/models/rwkv.py:126-136`` (``jax.vjp`` of
+  ``repro/kernels/ref.py:102``). One block of 256 threads per (b, h)
+  holds ∂L/∂S in registers, a thread one row's 16 columns, and walks the
+  chunks between checkpoints backwards (:func:`bwd_plan`), recomputing
+  each chunk's states from its checkpoint; it sums in
+  ``ref.rwkv6_scan_bwd_ref``'s order, so the two agree bit for bit. The
+  function's bound is about 16 D² fp32 operations a step per (b, h); the
+  design adds the bytes of its checkpoints, nearly as many again at
+  rwkv6-1.6b's training layer.
 """
 from __future__ import annotations
 
@@ -34,6 +50,7 @@ GROUP = 8                  # steps whose y trees are reduced together
 RESIDENT = 2               # blocks an SM holds (the kernel's launch bounds)
 SMEM_OPTIN = 227 * 1024    # shared memory a block may take on sm_90
 _SMEM_REFUSED = 9          # cudaErrorInvalidConfiguration
+CKPT_EVERY = 8             # steps between the checkpoint mode's states
 
 
 class Plan(NamedTuple):
@@ -69,7 +86,7 @@ def _cut(b, h, d, rows):
 
 @functools.lru_cache(maxsize=4096)
 def plan(b: int, l: int, h: int, d: int, chunk: int, sms: int = 132,
-         rkv_bytes: int = 2, w_bytes: int = 4) -> Plan:
+         rkv_bytes: int = 2, w_bytes: int = 4, ckpt: bool = False) -> Plan:
     """Cut a call of ``b`` batch rows, ``l`` steps and ``h`` heads of size
     ``d`` with ``chunk`` steps staged per load, on a card of ``sms``
     multiprocessors, r/k/v of ``rkv_bytes`` and w of ``w_bytes`` an
@@ -82,7 +99,9 @@ def plan(b: int, l: int, h: int, d: int, chunk: int, sms: int = 132,
     ``min(chunk, L)`` steps a slot; where two slots of them would not fit
     in ``SMEM_OPTIN`` (fp32 operands), as many whole groups as two do. A
     ``smem`` over ``SMEM_OPTIN`` (one slot of ``chunk`` too large) is
-    refused at launch."""
+    refused at launch. In the checkpoint mode (``ckpt``) a sequence longer
+    than a slot stages a multiple of ``CKPT_EVERY`` steps, so every
+    checkpoint falls on a group's first step."""
     rows, group = 4, GROUP
     lanes, cols, col_blocks, blocks = _cut(b, h, d, rows)
     if blocks > RESIDENT * sms:
@@ -96,6 +115,8 @@ def plan(b: int, l: int, h: int, d: int, chunk: int, sms: int = 132,
     if l > staged and 2 * staged * step_bytes + tile > SMEM_OPTIN:
         fit = (SMEM_OPTIN - tile) // (2 * step_bytes)
         staged = max(fit - fit % GROUP, 1)
+    if ckpt and l > staged:
+        staged = max(staged - staged % CKPT_EVERY, CKPT_EVERY)
     slots = 2 if l > staged else 1
     return Plan(rows, lanes, group, cols, col_blocks, blocks, cols * lanes,
                 staged, slots, slots * staged * step_bytes + tile)
@@ -119,7 +140,17 @@ def _lib():
     lib = _build.load("rwkv6_scan")
     fn = lib.rwkv6_scan_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_lib():
+    lib = _build.load("rwkv6_scan_bwd")
+    fn = lib.rwkv6_scan_bwd_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -160,9 +191,13 @@ def _check(r, k, v, w, u, s0, chunk):
             raise ValueError(f"{name} must be contiguous")
 
 
-def rwkv6_scan(r, k, v, w, u, s0=None, *, chunk: int = 128):
+def rwkv6_scan(r, k, v, w, u, s0=None, *, chunk: int = 128,
+               checkpoints: bool = False):
     """Launch the WKV6 kernel on CUDA tensors; returns ``(y, s_final)``
-    with y (B, L, H, D) in r's dtype and s_final (B, H, D, D) fp32.
+    with y (B, L, H, D) in r's dtype and s_final (B, H, D, D) fp32, and
+    with ``checkpoints`` a third tensor, the states before steps 0,
+    ``CKPT_EVERY``, 2·``CKPT_EVERY``, … (B, H, ⌈L / CKPT_EVERY⌉, D, D)
+    fp32, what :func:`rwkv6_scan_bwd` reads.
 
     r, k, v (B, L, H, D) bf16 or fp32 (one dtype), w the same shape fp32
     or bf16, u (H, D) fp32, s0 (B, H, D, D) fp32 or None (zeros); all
@@ -176,14 +211,18 @@ def rwkv6_scan(r, k, v, w, u, s0=None, *, chunk: int = 128):
     b, l, h, d = r.shape
     y = torch.empty_like(r)
     s_final = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
+    ck = (torch.empty((b, h, -(-l // CKPT_EVERY), d, d), dtype=torch.float32,
+                      device=r.device) if checkpoints else None)
+    out = (y, s_final) if ck is None else (y, s_final, ck)
     if b * h == 0:
-        return y, s_final
+        return out
     p = plan(b, l, h, d, int(chunk), _sm_count(r.device), r.element_size(),
-             w.element_size())
+             w.element_size(), ckpt=checkpoints)
     err = _lib()(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                  u.data_ptr(), None if s0 is None else s0.data_ptr(),
-                 y.data_ptr(), s_final.data_ptr(), b, l, h, d, p.rows,
-                 p.group, p.cols, p.col_blocks, p.staged,
+                 y.data_ptr(), s_final.data_ptr(),
+                 None if ck is None else ck.data_ptr(), CKPT_EVERY, b, l, h,
+                 d, p.rows, p.group, p.cols, p.col_blocks, p.staged,
                  int(r.dtype == torch.bfloat16),
                  int(w.dtype == torch.bfloat16),
                  torch.cuda.current_stream(r.device).cuda_stream)
@@ -194,7 +233,75 @@ def rwkv6_scan(r, k, v, w, u, s0=None, *, chunk: int = 128):
     if err != 0:
         raise RuntimeError(f"rwkv6_scan launch failed: CUDA error {err}")
     rwkv6_scan.launches += 1
-    return y, s_final
+    return out
 
 
 rwkv6_scan.launches = 0
+
+
+# ---------------------------------------------------------------- backward --
+
+def bwd_plan(l: int) -> int:
+    """The backward's cut of an L-step call: the chunks of ``CKPT_EVERY``
+    steps it walks, each from one of the checkpoints the forward's
+    checkpoint mode writes."""
+    return -(-l // CKPT_EVERY)
+
+
+def _check_bwd(r, k, v, w, u, ckpt, dy, ds_final):
+    b, l, h, d = r.shape
+    if dy.shape != r.shape or dy.dtype != r.dtype:
+        raise ValueError(f"dy {dy.dtype}{tuple(dy.shape)} must match r "
+                         f"{r.dtype}{tuple(r.shape)}")
+    want = (b, h, bwd_plan(l), d, d)
+    if ckpt.shape != want:
+        raise ValueError(f"ckpt {tuple(ckpt.shape)} != {want}: the states "
+                         f"the forward's checkpoint mode writes every "
+                         f"{CKPT_EVERY} steps")
+    if ds_final is not None and ds_final.shape != (b, h, d, d):
+        raise ValueError(f"ds_final {tuple(ds_final.shape)} != (B, H, D, D)")
+    _check(r, k, v, w, u, None, 1)
+    for name, t in (("ckpt", ckpt), ("dy", dy), ("ds_final", ds_final)):
+        if t is None:
+            continue
+        if name != "dy" and t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != r.device:
+            raise ValueError(f"{name} on {t.device}: every operand must be "
+                             f"on one CUDA device (r is on {r.device})")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def rwkv6_scan_bwd(r, k, v, w, u, ckpt, dy, ds_final=None):
+    """Launch the WKV6 backward on CUDA tensors: the cotangents (dr, dk,
+    dv in r's dtype, dw in w's dtype, du (H, D) fp32, ds0 (B, H, D, D)
+    fp32) of :func:`rwkv6_scan`'s inputs, given those of y (``dy``, r's
+    dtype and shape) and of the final state (``ds_final`` fp32 or None
+    for zeros). ``ckpt`` is what the forward's checkpoint mode returned
+    for the same inputs. All operands contiguous, on one card. Raises on
+    what the kernel does not take and on a failed launch.
+    ``rwkv6_scan_bwd.launches`` counts the launches."""
+    _check_bwd(r, k, v, w, u, ckpt, dy, ds_final)
+    b, l, h, d = r.shape
+    dr, dk, dv = (torch.empty_like(r) for _ in range(3))
+    dw = torch.empty_like(w)
+    du = torch.zeros((b, h, d), dtype=torch.float32, device=r.device)
+    ds0 = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
+    if b * h == 0:
+        return dr, dk, dv, dw, du.sum(0), ds0
+    err = _bwd_lib()(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        ckpt.data_ptr(), dy.data_ptr(),
+        None if ds_final is None else ds_final.data_ptr(), dr.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+        ds0.data_ptr(), b, l, h, d, CKPT_EVERY,
+        int(r.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
+        torch.cuda.current_stream(r.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rwkv6_scan_bwd launch failed: CUDA error {err}")
+    rwkv6_scan_bwd.launches += 1
+    return dr, dk, dv, dw, du.sum(0), ds0
+
+
+rwkv6_scan_bwd.launches = 0

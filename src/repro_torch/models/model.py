@@ -18,10 +18,12 @@ Ported: GQA attention with a dense MLP or an MoE FFN (``models/moe.py``),
 RoPE, sinusoidal or no positions, and the vlm / audio backbones' prefix
 of frontend embeddings (``embeds``, from ``models/frontend.py``'s stubs)
 for all five entry points; and RWKV6 (time-mix + channel-mix,
-``models/rwkv.py``) for ``init_params``, ``init_decode_state``,
-``prefill`` and ``decode_step`` — serving. RWKV ``forward``/``loss_fn``
-(training) wait for a backward of ``rwkv6_scan``; MLA and Mamba raise
-``NotImplementedError``.
+``models/rwkv.py``), also for all five: ``forward`` / ``loss_fn`` start
+each mix from a fresh zero state, as the JAX ``_apply_mixer`` /
+``_apply_ffn`` do, and differentiate the WKV recurrence through
+``kernels.ops.rwkv6_scan`` (the forward and backward kernels on the
+card). MLA and Mamba raise ``NotImplementedError`` naming their ROADMAP
+items.
 """
 from __future__ import annotations
 
@@ -45,14 +47,9 @@ _LATER = {"mla": "MLA (ROADMAP Queue 1 item 11.5)",
           "mamba": "Mamba and the hybrids (ROADMAP Queue 1 item 11.6)"}
 
 
-def _check_ported(cfg: ArchConfig, training: bool = False) -> None:
+def _check_ported(cfg: ArchConfig) -> None:
     kinds = set(cfg.layer_kinds())
     if kinds == {("rwkv", "cmix")}:
-        if training:
-            raise NotImplementedError(
-                f"{cfg.name}: RWKV training is a later slice of the port — "
-                "rwkv6_scan has no backward yet (ROADMAP Queue 1 item "
-                "11.4); serving (prefill, decode_step) is ported")
         return
     for mix, _ in kinds:
         if mix in _LATER:
@@ -161,18 +158,35 @@ def _ffn(lp, cfg: ArchConfig, h):
     return h + mlp(lp["mlp"], x, cfg.act), 0.0
 
 
+def _rwkv_train_layer(lp, cfg: ArchConfig, h):
+    """One RWKV6 layer of the training forward: each mix starts from a
+    fresh zero state (bf16 shifts, fp32 WKV), as the JAX ``_apply_mixer``
+    / ``_apply_ffn`` start it, and writes none."""
+    def fresh(x):
+        return rwkv_lib.rwkv_state_init(x.shape[0], cfg.d_model,
+                                        device=x.device)
+
+    x = apply_norm(h, lp["norm1"], cfg.norm)
+    h = h + rwkv_lib.time_mix_forward(lp["tmix"], x, fresh(x), cfg.d_model)
+    x = apply_norm(h, lp["norm2"], cfg.norm)
+    return h + rwkv_lib.channel_mix_forward(lp["cmix"], x, fresh(x))
+
+
 def forward(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor,
             embeds=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence causal forward over the ``embeds`` prefix (B, F, D)
     and the tokens. Returns (fp32 logits over both, moe aux loss summed
     over the layers — zero without MoE)."""
-    _check_ported(cfg, training=True)
+    _check_ported(cfg)
     h = _embed(params, cfg, tokens, embeds)
     positions = torch.arange(h.shape[1], device=h.device)
     aux = torch.zeros((), device=h.device)
     for i in range(cfg.n_blocks()):
         for j in range(cfg.block_period()):
             lp = _block(params["blocks"][j], i)
+            if cfg.rwkv:
+                h = _rwkv_train_layer(lp, cfg, h)
+                continue
             x = apply_norm(h, lp["norm1"], cfg.norm)
             out, _ = attn_lib.gqa_forward(
                 lp["attn"], x, positions, attn_chunk=cfg.attn_chunk,

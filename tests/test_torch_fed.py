@@ -40,7 +40,7 @@ from repro.data import FederatedBatcher as JBatcher
 from repro.data import seq_classification as jseq
 from repro.launch.steps import galore_target_fn as jtarget
 from repro.models import model as jmodel
-from repro_torch.configs import get_config, smoke_variant
+from repro_torch.configs import ArchConfig, get_config, smoke_variant
 from repro_torch.core import galore as tgal
 from repro_torch.core.fed import FedConfig, FedEngine
 from repro_torch.data import FederatedBatcher, seq_classification
@@ -190,7 +190,7 @@ def _tiny_engine(**kw):
 def test_unported_paths_raise_naming_the_roadmap():
     """Every method builds in every round form, with the population and
     defense settings too (ROADMAP Queue 1 item 10 is ported); what is
-    left to refuse are the model families of item 11."""
+    left to refuse are MLA and Mamba (items 11.5 and 11.6)."""
     from repro_torch.core.fed import METHODS
     from repro_torch.core.population import ParticipationConfig
     for method in METHODS:
@@ -206,8 +206,10 @@ def test_unported_paths_raise_naming_the_roadmap():
              "labels": np.full((C, T, 2, 4), -1, np.int32)}
     eng.run_round(batch, mask=np.array([True, False, True, True]),
                   attack=np.array([1.0, 1.0, -1.0, 1.0], np.float32))
-    cfg = smoke_variant(get_config("rwkv6-1.6b"))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    cfg = ArchConfig(name="mla", family="dense", mla=True, q_lora_rank=16,
+                     kv_lora_rank=16, n_layers=2, d_model=64, n_heads=2,
+                     n_kv_heads=2, d_ff=128, vocab_size=64, dtype="float32")
+    with pytest.raises(NotImplementedError, match="item 11.5"):
         tmodel.loss_fn({}, cfg, batch)
 
 

@@ -483,13 +483,27 @@ def test_demo_wrap_feeds_the_kernel_path(monkeypatch):
 
 
 def test_training_is_a_later_slice(slice_):
-    _, tcfg, _, _, _, _ = slice_
-    params = tmodel.init_params(tcfg, seed=0, device="cpu")
-    tokens = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        tmodel.forward(params, tcfg, tokens)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        tmodel.loss_fn(params, tcfg, {"tokens": tokens, "labels": tokens})
+    """Training was the slice after serving; it is ported now: the
+    training ``forward`` and ``loss_fn`` run on the smoke model from JAX's
+    params and give JAX's logits and loss (their gradients are
+    ``test_torch_rwkv_train.py``'s)."""
+    jcfg, tcfg, params, _, _, _ = slice_
+    tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, params),
+                              "cpu")
+    tokens = _prompts(8, (2, 9), jcfg.vocab_size)
+    labels = _prompts(9, (2, 9), jcfg.vocab_size)
+    labels[:, :3] = -1
+    jlogits, _ = jmodel.forward(params, jcfg, jnp.asarray(tokens))
+    jloss = jmodel.loss_fn(params, jcfg, {"tokens": jnp.asarray(tokens),
+                                          "labels": jnp.asarray(labels)})
+    with torch.no_grad():
+        logits, aux = tmodel.forward(tparams, tcfg, torch.from_numpy(tokens))
+        loss = tmodel.loss_fn(tparams, tcfg,
+                              {"tokens": torch.from_numpy(tokens),
+                               "labels": torch.from_numpy(labels)})
+    assert logits.shape == (2, 9, tcfg.vocab_size) and float(aux) == 0.0
+    assert _close(logits.numpy(), jlogits, PREFILL_TOL)
+    assert abs(loss.item() - float(jloss)) <= 1e-5 * abs(float(jloss))
 
 
 def test_cli_serves_rwkv_on_cpu_when_asked():
