@@ -1203,7 +1203,10 @@ def phase_rwkv_bwd_kernel_checks(gen):
     at the edges — L = 1, L = 13 and 67 (not a multiple of CKPT_EVERY),
     300 (the forward's slots cut in the checkpoint mode), L = 129 with
     chunk 64, L = 0, D = 17 and 40, fp32 r/k/v, bf16 w, s0 None, ds_final
-    given, 8 rows (the forward's 16 rows a lane). Gated bit for bit, each
+    given, 8 rows (the forward's 16 rows a lane); and the edges of the
+    kernel's pipeline — (8, 300), two waves of blocks; L = 9, a last chunk
+    of one step; D = 17 (fp32, L = 9) and 40 (8 rows, L = 23), whole warps
+    of rows past D. Gated bit for bit, each
     output's relative reading reported beside its tolerance. Then two
     planted faults at the training shape must read above those
     tolerances. Returns the worst absolute error and the keys checked."""
@@ -1219,7 +1222,10 @@ def phase_rwkv_bwd_kernel_checks(gen):
              dict(b=2, l=67, w_dtype=torch.bfloat16),
              dict(b=2, l=300, dtype=torch.float32, w_dtype=torch.bfloat16),
              dict(b=2, l=20, s0=False), dict(b=B, l=40, ds=True),
-             dict(b=TRAIN_B, l=TRAIN_L, w_dtype=torch.bfloat16)]
+             dict(b=TRAIN_B, l=TRAIN_L, w_dtype=torch.bfloat16),
+             dict(b=8, l=300), dict(b=2, l=9, ds=True),
+             dict(b=2, l=9, d=17, s0=False, dtype=torch.float32),
+             dict(b=8, l=23, d=40, w_dtype=torch.bfloat16, ds=True)]
     worst, checked, path_case = 0.0, set(), None
     for spec in cases:
         spec = dict(spec)
@@ -1304,6 +1310,8 @@ def phase_rwkv_bwd_times(gen, card):
     row = {"phase": "rwkv_bwd_times", "kernel": "rwkv6_scan_bwd",
            "card": card, "shape": "training backward", "B": b, "L": l,
            "H": h, "D": d, "bound_ms": b_ms, "bound_by": b_by,
+           "no_fma_ceiling_ms": rwkv_bwd_no_fma_ms(c0),
+           "plan": scan_mod.bwd_plan(b, l, h)._asdict(),
            "checkpoint_bytes": ck_bytes,
            "checkpoint_read_ms": ck_bytes / PEAK_BYTES * 1e3,
            "library": "no single call",
@@ -1318,6 +1326,7 @@ def phase_rwkv_bwd_times(gen, card):
     row["device_plain_ms"] = graph_ms(plain, sets, calls=2, replays=2)
     row["bound_share"] = b_ms / row["ms"]
     row["device_bound_share"] = b_ms / row["device_ms"]
+    row["device_no_fma_share"] = row["no_fma_ceiling_ms"] / row["device_ms"]
     rows.append(row)
     emit(row)
     del sets
@@ -1340,6 +1349,14 @@ def rwkv_bwd_bound(c):
               + 2 * c["u"].numel() * 4
               + (2 if c["ds"] is not None else 1) * b * h * d * d * 4)
     return _bound(nbytes, [(16.0 * b * l * h * d * d, PEAK_FP32)])
+
+
+def rwkv_bwd_no_fma_ms(c):
+    """The least ms of rwkv_bwd_bound's operations when each multiply
+    and each add issues on its own, as the plain version's order needs (no
+    fused multiply-adds): half the fp32 rate."""
+    b, l, h, d = c["r"].shape
+    return 16.0 * b * l * h * d * d / (PEAK_FP32 / 2) * 1e3
 
 
 def phase_times(gen, card, shapes=SHAPES, arch="qwen1.5-0.5b"):

@@ -24,14 +24,17 @@ Training adds two things (``ops.rwkv6_scan``'s autograd Function):
   replaces no TPU kernel: the Pallas ``rwkv6_scan`` is forward only, and
   the JAX package trains RWKV6 through XLA's derivative of the
   ``lax.scan`` in ``repro/models/rwkv.py:126-136`` (``jax.vjp`` of
-  ``repro/kernels/ref.py:102``). One block of 256 threads per (b, h)
-  holds ∂L/∂S in registers, a thread one row's 16 columns, and walks the
-  chunks between checkpoints backwards (:func:`bwd_plan`), recomputing
-  each chunk's states from its checkpoint; it sums in
-  ``ref.rwkv6_scan_bwd_ref``'s order, so the two agree bit for bit. The
-  function's bound is about 16 D² fp32 operations a step per (b, h); the
-  design adds the bytes of its checkpoints, nearly as many again at
-  rwkv6-1.6b's training layer.
+  ``repro/kernels/ref.py:102``). One block of 512 threads per (b, h)
+  holds ∂L/∂S in registers, a thread 8 columns of one row, and walks the
+  chunks between checkpoints backwards in a three-stage pipeline
+  (:func:`bwd_plan`): while a chunk is walked, the one before it is
+  recomputed from its checkpoint into the state slots the walk frees, and
+  the one before that is loaded. A step's three row sums are one
+  reduce-scatter across the row's lanes. It sums in
+  ``ref.rwkv6_scan_bwd_ref``'s order, so the two agree bit for bit, and
+  with no fused multiply-add. The function's bound is 16 D² fp32
+  operations a step per (b, h) at the card's fp32 rate; without fused
+  multiply-adds the ceiling of this arithmetic is twice that.
 """
 from __future__ import annotations
 
@@ -150,7 +153,7 @@ def _bwd_lib():
     lib = _build.load("rwkv6_scan_bwd")
     fn = lib.rwkv6_scan_bwd_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + \
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 10 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -241,19 +244,53 @@ rwkv6_scan.launches = 0
 
 # ---------------------------------------------------------------- backward --
 
-def bwd_plan(l: int) -> int:
-    """The backward's cut of an L-step call: the chunks of ``CKPT_EVERY``
-    steps it walks, each from one of the checkpoints the forward's
-    checkpoint mode writes."""
-    return -(-l // CKPT_EVERY)
+BWD_COLS = 8        # columns of ∂L/∂S a backward thread holds
 
 
-def _check_bwd(r, k, v, w, u, ckpt, dy, ds_final):
+class BwdPlan(NamedTuple):
+    """How the backward cuts a call (``csrc/rwkv6_scan_bwd.cu``, whose
+    entry point refuses a plan other than its own constants). One block a
+    (b, h), ``blocks`` in all, walks ``chunks`` chunks of ``steps`` steps,
+    one a checkpoint of the forward's checkpoint mode. A thread holds
+    ``cols`` columns of one row of ∂L/∂S, so a row spans ``lanes`` lanes,
+    a warp ``rows_per_warp`` rows and the block's ``threads`` threads
+    (``warps`` warps) the 64 rows once. ``stages`` chunks are in flight
+    (walked, recomputed, loaded); ``smem`` is the bytes a block takes."""
+    steps: int
+    chunks: int
+    cols: int
+    lanes: int
+    rows_per_warp: int
+    threads: int
+    warps: int
+    blocks: int
+    stages: int
+    smem: int
+
+
+def bwd_plan(b: int, l: int, h: int) -> BwdPlan:
+    """The backward's cut of a call of ``b`` batch rows, ``l`` steps and
+    ``h`` heads (any D ≤ 64 is padded to 64). Shared memory, in floats, as
+    the kernel lays it out: the states of one chunk, two staging buffers
+    (r k w as a float4 a row, v and dy a column group of ``BWD_COLS`` + 4
+    floats, v·dy's two halves), the warps' dv partials and the chunk's dr,
+    dk, dw rows."""
+    k, n = CKPT_EVERY, MAX_HEAD_DIM
+    lanes = n // BWD_COLS
+    threads = n * lanes
+    buf = 4 * k * n + 2 * k * lanes * (BWD_COLS + 4) + 2 * k
+    floats = k * n * n + 2 * buf + k * (threads // WARP) * n + \
+        3 * (k * n + 8)
+    return BwdPlan(k, -(-l // k), BWD_COLS, lanes, WARP // lanes, threads,
+                   threads // WARP, b * h, 3, 4 * floats)
+
+
+def _check_bwd(r, k, v, w, u, ckpt, dy, ds_final, p):
     b, l, h, d = r.shape
     if dy.shape != r.shape or dy.dtype != r.dtype:
         raise ValueError(f"dy {dy.dtype}{tuple(dy.shape)} must match r "
                          f"{r.dtype}{tuple(r.shape)}")
-    want = (b, h, bwd_plan(l), d, d)
+    want = (b, h, p.chunks, d, d)
     if ckpt.shape != want:
         raise ValueError(f"ckpt {tuple(ckpt.shape)} != {want}: the states "
                          f"the forward's checkpoint mode writes every "
@@ -282,11 +319,12 @@ def rwkv6_scan_bwd(r, k, v, w, u, ckpt, dy, ds_final=None):
     for the same inputs. All operands contiguous, on one card. Raises on
     what the kernel does not take and on a failed launch.
     ``rwkv6_scan_bwd.launches`` counts the launches."""
-    _check_bwd(r, k, v, w, u, ckpt, dy, ds_final)
     b, l, h, d = r.shape
+    p = bwd_plan(b, l, h)
+    _check_bwd(r, k, v, w, u, ckpt, dy, ds_final, p)
     dr, dk, dv = (torch.empty_like(r) for _ in range(3))
     dw = torch.empty_like(w)
-    du = torch.zeros((b, h, d), dtype=torch.float32, device=r.device)
+    du = torch.empty((b, h, d), dtype=torch.float32, device=r.device)
     ds0 = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
     if b * h == 0:
         return dr, dk, dv, dw, du.sum(0), ds0
@@ -295,7 +333,7 @@ def rwkv6_scan_bwd(r, k, v, w, u, ckpt, dy, ds_final=None):
         ckpt.data_ptr(), dy.data_ptr(),
         None if ds_final is None else ds_final.data_ptr(), dr.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
-        ds0.data_ptr(), b, l, h, d, CKPT_EVERY,
+        ds0.data_ptr(), b, l, h, d, p.steps, p.cols, p.threads, p.smem,
         int(r.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
         torch.cuda.current_stream(r.device).cuda_stream)
     if err != 0:

@@ -23,6 +23,8 @@ import importlib
 
 import numpy as np
 import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax
 import jax.numpy as jnp
@@ -315,120 +317,247 @@ def test_ops_scan_on_the_card_path_keeps_the_gradient(monkeypatch):
 # ------------------------------------------- the kernel's plan, on CPU ----
 
 def test_bwd_plan_of_the_training_shape():
-    """rwkv6-1.6b's training layer, L = 128: 16 chunks of 8 steps, one a
-    checkpoint of the forward's checkpoint mode (ceil(L / 8), none at L =
-    0), as many as the plain forward writes."""
-    assert _scan_mod.bwd_plan(128) == 16
-    assert _scan_mod.bwd_plan(13) == 2
-    assert _scan_mod.bwd_plan(0) == 0
+    """rwkv6-1.6b's training layer, (4, 128, 32, 64): one block a (b, h),
+    16 chunks of 8 steps, one a checkpoint of the forward's checkpoint
+    mode (ceil(L / 8), none at L = 0, as many as the plain forward
+    writes); 512 threads of 8 columns, whose rows tile the 64 rows once,
+    in shared memory a block may take."""
+    p = _scan_mod.bwd_plan(4, 128, 32)
+    assert (p.steps, p.chunks, p.cols, p.lanes, p.rows_per_warp, p.threads,
+            p.warps, p.blocks, p.stages) == (8, 16, 8, 8, 4, 512, 16, 128, 3)
+    assert p.smem <= _scan_mod.SMEM_OPTIN
+    assert p.lanes * p.cols == 64 and p.rows_per_warp * p.warps == 64
+    rows = sorted(_bwd_owner(t)[0] for t in range(p.threads))
+    assert rows == sorted(list(range(64)) * p.lanes)
+    assert _scan_mod.bwd_plan(1, 0, 2).chunks == 0
     for l in (1, 8, 9, 19):
         r, k, v, w, u, s0, _, _ = (_t(x) for x in _inputs(3, 1, l, 2, 16,
                                                           True))
         ck = tref.rwkv6_scan_ref(r, k, v, w, u, s0,
                                  every=_scan_mod.CKPT_EVERY)[2]
-        assert ck.shape[2] == _scan_mod.bwd_plan(l)
+        assert ck.shape[2] == _scan_mod.bwd_plan(1, l, 2).chunks
 
 
-# The backward kernel's map from a thread of its 256 to the entries of
+# The backward kernel's map from a thread of its 512 to the entries of
 # ∂L/∂S it holds (csrc/rwkv6_scan_bwd.cu), spelled out to emulate its
-# sums: 64 rows of 4 threads, 16 columns a thread.
-BWD_THREADS, BWD_COLS = 256, 16
+# sums: 64 rows of 8 lanes, 8 columns a lane, 4 rows a warp.
+BWD_THREADS, BWD_COLS, BWD_LANES = 512, 8, 8
 
 
 def _bwd_owner(thread: int):
     """(row, first column) of ∂L/∂S that a backward thread holds: row
-    ``thread // 4``, columns [16·(thread % 4), +16); a row or column at or
+    ``thread // 8``, columns [8·(thread % 8), +8); a row or column at or
     past D is padding."""
-    return thread // 4, BWD_COLS * (thread % 4)
+    return thread // BWD_LANES, BWD_COLS * (thread % BWD_LANES)
 
 
 def _bwd_dv_columns(thread: int):
-    """The two columns whose sum over its warp's 8 rows a backward thread
-    holds after the reduce-scatter (bit l of its row keeps the upper half
-    at level l, of 16, 8, then 4 columns)."""
+    """The two columns whose sum over its warp's 4 rows a backward thread
+    holds after the rows' reduce-scatter (bit l of its row keeps the upper
+    half at level l, of 8, then 4 columns)."""
     row, c0 = _bwd_owner(thread)
     sigma = sum(((BWD_COLS >> lv) // 2) * ((row >> lv) & 1)
-                for lv in range(3))
+                for lv in range(2))
     return c0 + sigma, c0 + sigma + 1
 
 
+def _bwd_role(thread: int):
+    """Which of the row's sums (0 dr, 1 dk, 2 dw) the lanes' reduce-scatter
+    leaves on a thread, or None: lane q % 4 = 0, 2, 1 for q < 4."""
+    q = thread % BWD_LANES
+    return {0: 0, 2: 1, 1: 2}.get(q) if q < 4 else None
+
+
 def test_bwd_threads_hold_every_entry_once():
-    """The 256 threads (``_bwd_owner``) hold each (row, column) of ∂L/∂S
-    once, and after the reduce-scatter each warp holds every column's sum
-    over its 8 rows once (``_bwd_dv_columns``)."""
+    """The 512 threads (``_bwd_owner``) hold each (row, column) of ∂L/∂S
+    once; after the rows' reduce-scatter each warp holds every column's
+    sum over its 4 rows once (``_bwd_dv_columns``); after the lanes'
+    reduce-scatter each row's dr, dk and dw sit on one lane each
+    (``_bwd_role``)."""
     held = np.zeros((64, 64), np.int64)
-    for t in range(256):
+    for t in range(BWD_THREADS):
         row, c0 = _bwd_owner(t)
-        held[row, c0:c0 + 16] += 1
+        held[row, c0:c0 + BWD_COLS] += 1
     assert (held == 1).all()
-    for warp in range(8):
-        cols = [c for t in range(32 * warp, 32 * warp + 32)
-                for c in _bwd_dv_columns(t)]
-        assert sorted(cols) == list(range(64))
-        rows = {_bwd_owner(t)[0] for t in range(32 * warp,
-                                                          32 * warp + 32)}
-        assert rows == set(range(8 * warp, 8 * warp + 8))
+    for warp in range(BWD_THREADS // 32):
+        ts = range(32 * warp, 32 * warp + 32)
+        got = [c for t in ts for c in _bwd_dv_columns(t)]
+        assert sorted(got) == list(range(64))
+        assert {_bwd_owner(t)[0] for t in ts} == set(range(4 * warp,
+                                                         4 * warp + 4))
+    for row in range(64):
+        roles = [_bwd_role(t) for t in range(BWD_THREADS)
+                 if _bwd_owner(t)[0] == row]
+        assert sorted(x for x in roles if x is not None) == [0, 1, 2]
 
 
-def _emulate_row_sum(x):
-    """A row's sum over 64 columns as the kernel takes it: each lane's 16
-    columns as adjacent pairs, then xor-shuffles at offsets 1 and 2."""
-    lanes = []
-    for q in range(4):
-        p = list(x[16 * q:16 * q + 16])
-        while len(p) > 1:
-            p = [p[a] + p[a + 1] for a in range(0, len(p), 2)]
-        lanes.append(p[0])
-    lanes = [lanes[q] + lanes[q ^ 1] for q in range(4)]
-    return [lanes[q] + lanes[q ^ 2] for q in range(4)]
+def _tree(vals):
+    """Adjacent pairs until one is left (the in-thread tree)."""
+    vals = list(vals)
+    while len(vals) > 1:
+        vals = [vals[a] + vals[a + 1] for a in range(0, len(vals), 2)]
+    return vals[0]
+
+
+def _emulate_row_sums(x3):
+    """A row's three sums (x3: dr's, dk's, dw's 64 column products) as the
+    kernel takes them: each lane's 8 columns as adjacent pairs, then
+    ``lanes_reduce_scatter`` — at lane bit 0 the even lane keeps (dr, dk)
+    and the odd one (dw, 0), at bit 1 each keeps one of its two, at bit 2
+    the halves are added. Returns {lane: its sum}."""
+    part = {q: [_tree(x[8 * q:8 * q + 8]) for x in x3] + [0.0]
+            for q in range(BWD_LANES)}
+    lv1 = {}
+    for q in range(BWD_LANES):
+        mine, other = part[q], part[q ^ 1]
+        if q & 1:
+            lv1[q] = [mine[2] + other[2], mine[3] + other[3]]
+        else:
+            lv1[q] = [mine[0] + other[0], mine[1] + other[1]]
+    z = {q: lv1[q][(q >> 1) & 1] + lv1[q ^ 2][(q >> 1) & 1]
+         for q in range(BWD_LANES)}
+    return {q: z[q] + z[q ^ 4] for q in range(BWD_LANES)}
 
 
 def _emulate_dv(x):
     """The sum over 64 rows of x (64, 64) as the kernel takes it: within
-    each warp's 8 rows the reduce-scatter of ``rows_reduce_scatter`` (keep
-    half, add the partner row's other half, three levels), each thread
-    left with the two columns ``_bwd_dv_columns`` names; then the 8 warps'
-    partials as a tree of adjacent pairs."""
-    red = torch.zeros((8, 64))
-    for warp in range(8):
+    each warp's 4 rows the reduce-scatter of ``rows_reduce_scatter`` (keep
+    half, add the partner row's other half, twice), each thread left with
+    the two columns ``_bwd_dv_columns`` names; then the 16 warps' partials
+    as a tree of adjacent pairs."""
+    red = torch.zeros((BWD_THREADS // 32, 64))
+    for warp in range(BWD_THREADS // 32):
         part = {}
         for t in range(32 * warp, 32 * warp + 32):
             row, c0 = _bwd_owner(t)
-            part[t] = list(x[row, c0:c0 + 16])
-        for lv in range(3):
-            half = (16 >> lv) // 2
+            part[t] = list(x[row, c0:c0 + BWD_COLS])
+        for lv in range(2):
+            half = (BWD_COLS >> lv) // 2
             new = {}
             for t, mine in part.items():
                 hi = (_bwd_owner(t)[0] >> lv) & 1
-                sent = part[t ^ (4 << lv)]
+                sent = part[t ^ (BWD_LANES << lv)]
                 lo = half if hi else 0
                 new[t] = [mine[lo + c] + sent[lo + c] for c in range(half)]
             part = new
         for t, vals in part.items():
             for c, val in zip(_bwd_dv_columns(t), vals):
                 red[warp, c] = val
-    p = list(red)
-    while len(p) > 1:
-        p = [p[a] + p[a + 1] for a in range(0, len(p), 2)]
-    return p[0]
+    return _tree(red)
+
+
+def _emulate_vdy(v, dy):
+    """v · dy of one step as the staging takes it: each warp holds 32
+    adjacent leaves and sums their products by an xor butterfly (every
+    lane left with the half's sum); the step's two halves are added where
+    they are read."""
+    prod = v * dy
+    halves = []
+    for h in range(2):
+        lane = list(prod[32 * h:32 * h + 32])
+        m = 1
+        while m < 32:
+            lane = [lane[a] + lane[a ^ m] for a in range(32)]
+            m *= 2
+        assert all(torch.equal(val, lane[0]) for val in lane)
+        halves.append(lane[0])
+    return halves[0] + halves[1]
+
+
+def _decades(seed, shape):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.standard_normal(shape)
+                             * 10.0 ** rng.uniform(-4, 4, shape))
+                            .astype(np.float32))
+
+
+def _bits(x):
+    return x.reshape(-1).view(torch.int32)
 
 
 def test_bwd_reduction_orders_are_the_pairwise_sum():
     """The kernel's sums, emulated in torch fp32, are bitwise the plain
-    version's trees: a row's sum over j (``_row_sum``) and dv's sum over i
+    version's trees: a row's dr, dk, dw over j on the lanes ``_bwd_role``
+    names (``_row_sum``), dv's sum over i and v · dy
     (``_pairwise_sum``). Inputs span eight decades, so any other order
     rounds differently."""
-    rng = np.random.default_rng(5)
-    x = torch.from_numpy((rng.standard_normal((64, 64))
-                          * 10.0 ** rng.uniform(-4, 4, (64, 64)))
-                         .astype(np.float32))
-    rows = tref._row_sum(x)
+    x3 = [_decades(5 + m, (64, 64)) for m in range(3)]
+    rows = [tref._row_sum(x) for x in x3]
     for i in range(64):
-        for val in _emulate_row_sum(x[i]):
-            assert torch.equal(val.view(torch.int32), rows[i].view(torch.int32))
-    want = tref._pairwise_sum(x)
-    assert torch.equal(_emulate_dv(x).view(torch.int32),
-                       want.view(torch.int32))
+        for q, val in _emulate_row_sums([x[i] for x in x3]).items():
+            role = _bwd_role(q)
+            if role is not None:
+                assert torch.equal(_bits(val), _bits(rows[role][i]))
+    assert torch.equal(_bits(_emulate_dv(x3[0])),
+                       _bits(tref._pairwise_sum(x3[0])))
+    v, dy = _decades(9, (64,)), _decades(10, (64,))
+    assert torch.equal(_bits(_emulate_vdy(v, dy)),
+                       _bits(tref._pairwise_sum((v * dy)[:, None])[0]))
+
+
+@settings(max_examples=40, deadline=None)
+@given(seed=st.integers(0, 2 ** 31 - 1),
+       group=st.sampled_from([1, 2, 4, 8, 16, 32, 64]),
+       width=st.integers(1, 5))
+def test_pairwise_sum_is_the_tree_of_its_aligned_groups(seed, group, width):
+    """``_pairwise_sum`` over 64 rows equals the tree of the sums of its
+    aligned groups of ``group`` rows — every group the backward cuts a
+    sum into (a thread's 8 columns, 32 of a row's across lane bits 0–1, a
+    warp's 4 rows, a warp's 32 leaves of v · dy) and more — bit for bit,
+    over eight decades."""
+    x = _decades(seed, (64, width))
+    parts = tref._pairwise_sum(x.reshape(64 // group, group, width))
+    got = tref._pairwise_sum(parts) if group < 64 else parts
+    assert torch.equal(_bits(got), _bits(tref._pairwise_sum(x)))
+
+
+def _emulate_bwd_schedule(l):
+    """The backward kernel's chunk schedule for an L-step call, followed
+    step by step: the prologue stages the last two chunks and recomputes
+    the last one's states into slots 0 … cnt - 1; then each chunk n, last
+    first, is walked from its buffer (n % 2) and slots (mirrored when
+    (last - n) is odd), the chunk before it recomputed into the slots the
+    walk frees, from buffer (n + 1) % 2, and chunk n - 2 staged into
+    buffer n % 2 after the walk. Returns the (chunk, step) whose state
+    each walk step read, in walk order, and asserts that each buffer
+    holds the chunk read from it."""
+    k = _scan_mod.CKPT_EVERY
+    nck = -(-l // k)
+    reads, slots, buf = [], {}, {}
+    if nck == 0:
+        return reads
+    last = nck - 1
+    buf[last % 2] = last
+    if last > 0:
+        buf[(last - 1) % 2] = last - 1
+    for s in range(l - last * k):
+        slots[s] = (last, s)
+    for n in range(last, -1, -1):
+        c = min(k, l - n * k)
+        flip = (last - n) & 1
+        assert buf[n % 2] == n
+        if n > 0:
+            assert buf[(n + 1) % 2] == n - 1
+        for s in range(k - 1, -1, -1):
+            slot = k - 1 - s if flip else s
+            if s < c:
+                reads.append(slots[slot])
+            slots[slot] = (n - 1, k - 1 - s)
+        if n >= 2:
+            buf[n % 2] = n - 2
+    return reads
+
+
+@pytest.mark.parametrize("l", [1, 7, 8, 9, 13, 16, 24, 67, 128])
+def test_bwd_ring_walks_the_forward_states_in_order(l):
+    """The kernel's pipeline (``_emulate_bwd_schedule``): every step t =
+    L-1 … 0 reads the state before step t (chunk t // 8, step t % 8) from
+    the ring, once, though the ring holds one chunk's states and runs
+    mirrored every other chunk; every walk and recompute reads the buffer
+    its chunk was staged into."""
+    k = _scan_mod.CKPT_EVERY
+    want = [(t // k, t % k) for t in range(l - 1, -1, -1)]
+    assert _emulate_bwd_schedule(l) == want
 
 
 @pytest.mark.parametrize("l,chunk,rkv", [(300, 128, 2), (300, 128, 4),
