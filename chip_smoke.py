@@ -39,6 +39,19 @@ weights from ``--seed``):
 * serving mistral-nemo-12b (40 layers, d 5120, 32 q heads on 8 kv heads
   of 128, so the heads span 4096 of the 5120 model columns): 8 requests
   of 128 tokens, 16 new tokens each, 8 adapters on seven projections;
+* serving deepseek-v2-236b (MLA: 128 heads, q_lora 1536, kv_lora 512,
+  q.k heads of 128 + 64, v heads of 128; MoE of 160 experts top 6 plus 2
+  shared; vocab 102400) and jamba-1.5-large-398b (d 8192, Mamba with
+  d_inner 16384 and d_state 16, 64 q heads on 8 kv heads of 128 at
+  offset 3 of its interleave, MoE of 16 experts top 2 on every other
+  layer) at their published widths with the depth cut to 4 layers
+  (``CUT_LAYERS``): 8 requests of 128 tokens, 16 new tokens each, 8
+  adapters on the projections ``serving_target_fn`` selects; their
+  parity gated on free routing (deepseek at the largest of 8
+  embedding-ulp controls, jamba on its share of flipped expert choices)
+  and, as for every MoE model, with each MoE layer's routing pinned to
+  the plain run's; one MLA layer's absorbed decode step and one Mamba
+  layer's plain scan timed;
 * the paper's NLU example, ``examples/federated_finetune_100m_torch.py``,
   for three FedGaLore rounds of paper-roberta-like (12 layers, d 768,
   sinusoidal positions; 4 clients, 4 local steps, batch 4 x 64, rank 8):
@@ -57,9 +70,10 @@ weights from ``--seed``):
   and every backward's through ``rwkv6_scan_bwd``.
 
 Every dense prefill's attention goes through ``flash_attention`` (qwen,
-starcoder2, granite, mistral-nemo), as do the training paths' evaluation
-forwards (no autograd graph); decode's through the plain masked
-attention over the KV cache.
+starcoder2, granite, mistral-nemo, jamba's attention layer), as do the
+training paths' evaluation forwards (no autograd graph); decode's
+through the plain masked attention over the KV cache; MLA's, at prefill
+and decode, through plain PyTorch.
 
 Each kernel is held against its plain PyTorch version at every shape its
 path launches (a ``ShapeLog`` fails the run on an unchecked shape) and,
@@ -119,6 +133,16 @@ PARITY_BOUND = 5e-2     # max |logit diff| / max |logit|, bf16 end to end
 # instead, phase_parity's floor_gate. Every adapted parity run also
 # plants a fault, each row's adapter id rolled by one, that must read
 # above the gate: 0.68-1.15 of the logit scale on that card.)
+# The cut deepseek-v2-236b and jamba-1.5-large-398b amplify rounding
+# further through flipped expert choices: over seeds 0-3 their free
+# controls read 0.08-0.21 and 0.06-0.73, so one control is no floor
+# (deepseek's kernel read 0.197 against one control's 0.1967 at seed 1).
+# Their free runs take the largest of MOE_CONTROLS controls: deepseek's
+# logits are gated at it (the kernel read 0.44-0.99 of it), jamba's
+# expert flips are (its controls reach the rolled adapters' 0.72-0.92,
+# and at seed 2 the kernel read 1.01 of the largest); readings from
+# scripts/moe_parity_floor.py on an NVIDIA H100 80GB HBM3 at 700 W.
+MOE_CONTROLS = 8
 # Kernel launches per forward, stated before the run: qwen1.5-0.5b adapts
 # 7 projections per layer; rwkv6-1.6b adapts 8 (time-mix wr wk wv wg wo,
 # channel-mix wk wv wr) and runs the WKV recurrence once per layer.
@@ -130,7 +154,17 @@ RWKV_PER_FORWARD = {"lowrank_linear_batched": 8 * 24, "rwkv6_scan": 24}
 QWEN_PER_PREFILL = {"flash_attention": 24}
 FULL_LAYERS = {"qwen1.5-0.5b": 24, "rwkv6-1.6b": 24, "starcoder2-7b": 32,
                "granite-moe-1b-a400m": 24, "mistral-nemo-12b": 40,
-               "paper-roberta-like": 12, "paper-vit-like": 12}
+               "paper-roberta-like": 12, "paper-vit-like": 12,
+               "deepseek-v2-236b": 60, "jamba-1.5-large-398b": 72}
+# deepseek-v2-236b (236 B params, ~440 GiB in bf16) and
+# jamba-1.5-large-398b (398 B, ~740 GiB) exceed one card: they serve at
+# their published widths with their depth cut to these layer counts
+# (16.94 B and 23.02 B params by ArchConfig.param_count). jamba keeps
+# layers 0-3 of its interleave: Mamba at 0-2, attention at offset 3, MoE
+# on 1 and 3. Every other field is the registered config's, which the
+# CPU tests hold to the JAX package's field for field.
+CUT_LAYERS = {"deepseek-v2-236b": 4, "jamba-1.5-large-398b": 4}
+
 
 # granite-moe-1b-a400m: (m, n) of its four adapted projections per layer
 # (wq wo (1024, 1024), wk wv (1024, 512)); 16 q heads on 8 kv heads of 64.
@@ -147,6 +181,28 @@ NEMO_SHAPES = [(5120, 4096), (5120, 1024), (4096, 5120), (5120, 14336),
 NEMO_PER_FORWARD = {"lowrank_linear_batched": 7 * 40}
 NEMO_PER_PREFILL = {"flash_attention": 40}
 NEMO_REQUESTS, NEMO_NEW = 8, 16
+
+# deepseek-v2-236b: (m, n) of its four adapted projections per layer
+# (q_a (5120, 1536), q_b (1536, 128 x 192), kv_a (5120, 512 + 64), wo
+# (128 x 128, 5120)); kv_b is read plain (absorbed at decode), experts,
+# shared experts and routers are frozen. MLA attends in plain PyTorch
+# (q.k heads of 192, v heads of 128: no flash_attention). Its serving
+# run: 8 requests of 128 tokens, 16 new tokens each.
+DS_SHAPES = [(5120, 1536), (1536, 24576), (5120, 576), (16384, 5120)]
+DS_PER_FORWARD = {"lowrank_linear_batched": 4 * 4}
+# jamba-1.5-large-398b, layers 0-3: Mamba in_proj (8192, 32768) and
+# out_proj (16384, 8192) on layers 0-2 (2-D x at decode), attention wq wo
+# (8192, 8192), wk wv (8192, 1024) on layer 3 (64 q heads on 8 kv heads
+# of 128, no positions; flash_attention at prefill), the GLU's w_gate
+# w_up (8192, 24576) and w_down (24576, 8192) on layers 0 and 2; the
+# MoE of layers 1 and 3 is frozen. Same traffic as deepseek's run.
+JAMBA_SHAPES = [(8192, 32768), (16384, 8192), (8192, 8192), (8192, 1024),
+                (8192, 24576), (24576, 8192)]
+JAMBA_TWO_D = [(8192, 32768), (16384, 8192)]
+JAMBA_PER_FORWARD = {"lowrank_linear_batched": 2 * 3 + 4 + 3 * 2}
+JAMBA_PER_PREFILL = {"flash_attention": 1}
+JAMBA_H, JAMBA_KV, JAMBA_D = 64, 8, 128
+CUT_REQUESTS, CUT_NEW = 8, 16
 
 # starcoder2-7b: (m, n) of its six adapted projections per layer (wq wo
 # (4608, 4608), wk wv (4608, 512), w_up (4608, 18432), w_down (18432,
@@ -590,11 +646,13 @@ def _misaligned(x):
     return view
 
 
-def phase_kernel_checks(gen, shapes, edges=False):
+def phase_kernel_checks(gen, shapes, edges=False, two_d=()):
     """The kernel against the plain version at a serving path's (m, n)
     ``shapes`` (square, wide, tall): decode (B, 1) of SlotServer and
     generate, prefill (B, PROMPT) of generate and (1, PROMPT) of
-    SlotServer's per-request admission, ragged tails, fp32 and 2-D x;
+    SlotServer's per-request admission, ragged tails, fp32 and 2-D x (at
+    the last shape and at each of ``two_d``, the shapes a decode reads
+    with 2-D x);
     with ``edges``, the routes' edges (ROUTE_EDGES), ranks and widths the
     paths do not send (RANK_EDGES) and a misaligned x view. Each check
     states its route and fails on another. Returns the worst error and
@@ -606,8 +664,9 @@ def phase_kernel_checks(gen, shapes, edges=False):
              for (m, n) in shapes
              for b, t in ((B, 1), (B, 100), (B, PROMPT), (1, PROMPT),
                           (1, 100))]
-    cases += [(B, *shapes[-2], 100, torch.float32, False, False, R),
-              (B, *shapes[-1], 1, torch.bfloat16, True, False, R)]  # 2-D x
+    cases += [(B, *shapes[-2], 100, torch.float32, False, False, R)]
+    cases += [(B, m, n, 1, torch.bfloat16, True, False, R)       # 2-D x
+              for m, n in dict.fromkeys([shapes[-1], *two_d])]
     if edges:
         cases += [(b, m, n, t, torch.bfloat16, False, False, R)
                   for b, t, m, n in ROUTE_EDGES]
@@ -716,12 +775,28 @@ SERVE_LOG = {"_ll": {"lowrank_linear_batched": _batched_key},
 
 
 def _full_config(arch):
+    """The registered full-width bf16 config, its depth cut to
+    CUT_LAYERS[arch] where the whole model exceeds one card."""
+    import dataclasses
     from repro_torch.configs import get_config
     cfg = get_config(arch)
     check(cfg.param_dtype == torch.bfloat16 and
           cfg.n_layers == FULL_LAYERS[arch],
           f"{arch} config is not the full-width bf16 one")
-    return cfg
+    if arch not in CUT_LAYERS:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=CUT_LAYERS[arch])
+
+
+def _adapted_per_forward(served) -> int:
+    """``lowrank_linear_batched`` launches one forward makes: one per
+    layer of every target leaf ``serving_target_fn`` wrapped (a stacked
+    (nb, m, n) leaf is nb layers)."""
+    from repro_torch.models import layers
+    from repro_torch.utils import tree
+    is_leaf = lambda x: isinstance(x, layers.MultiAdapterDelta)  # noqa: E731
+    return sum(int(x.w.shape[0]) for x in
+               tree.tree_leaves(served, is_leaf=is_leaf) if is_leaf(x))
 
 
 def _check_launches(arch, launches, expected):
@@ -779,6 +854,15 @@ def phase_serve(seed, card, checked, arch, per_forward, phase,
     params = model_lib.init_params(cfg, seed=seed, device="cuda")
     served = adapters_lib.demo_wrap(params, cfg, G, rank=R, seed=seed + 2)
     del params
+    derived = {"lowrank_linear_batched": _adapted_per_forward(served),
+               "flash_attention": sum(mix == "attn"
+                                      for mix, _ in cfg.layer_kinds())}
+    check(derived["lowrank_linear_batched"]
+          == per_forward.get("lowrank_linear_batched", 0) and
+          derived["flash_attention"]
+          == per_prefill.get("flash_attention", 0),
+          f"{arch}: stated launches per forward {per_forward} / per prefill "
+          f"{per_prefill} are not the served model's {derived}")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     setup_peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -825,6 +909,10 @@ def phase_serve(seed, card, checked, arch, per_forward, phase,
           bool(((gen_out >= 0) & (gen_out < cfg.vocab_size)).all()),
           "generate output has the wrong shape or range")
     emit({"phase": phase, "arch": cfg.name, "card": card,
+          "n_layers": cfg.n_layers, "cut_from": FULL_LAYERS[arch]
+          if arch in CUT_LAYERS else None,
+          "params_b": cfg.param_count() / 1e9,
+          "phase_s": time.perf_counter() - t0,
           "requests": requests, "slots": B, "prompt": PROMPT,
           "ragged_prompt": ragged, "max_new": new, "adapters": G, "rank": R,
           "setup_s": setup_s, "prefill_tok_s": s["prefill_tok_s"],
@@ -841,16 +929,29 @@ def phase_serve(seed, card, checked, arch, per_forward, phase,
 
 class RouteLog:
     """Records the experts every MoE layer picks (``moe.route``'s (N, k)
-    top indices) while active, in call order."""
+    top indices) while active, in call order. With ``pin`` (another run's
+    picks, the same calls) each layer routes its tokens to the pinned
+    experts instead, gated by its own router probabilities renormalised
+    over them; ``picks`` still records its own choices."""
+
+    def __init__(self, pin=None):
+        self.pin = pin
 
     def __enter__(self):
         from repro_torch.models import moe
         self.moe, self.orig, self.picks = moe, moe.route, []
 
-        def logged(*args, **kw):
-            out = self.orig(*args, **kw)
-            self.picks.append(out[1])
-            return out
+        def logged(router_w, x, k):
+            gates, idx, aux = self.orig(router_w, x, k)
+            if self.pin is not None:
+                want = self.pin[len(self.picks)]
+                check(want.shape == idx.shape, "a pinned run routed another "
+                      "number of tokens than the run it is pinned to")
+                probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
+                vals = torch.gather(probs, 1, want)
+                gates = vals / (torch.sum(vals, dim=-1, keepdim=True) + 1e-9)
+            self.picks.append(idx)
+            return gates, (idx if self.pin is None else want), aux
 
         moe.route = logged
         return self
@@ -888,24 +989,22 @@ def _bump_embed(emb, seed):
         moved, torch.nextafter(emb, torch.full_like(emb, float("inf"))), emb)
 
 
-def phase_parity(cfg, served, seed, phase="parity", batch=B, prompt=PROMPT,
-                 adapters=True, floor_gate=False):
-    """One prefill of ``batch`` x ``prompt`` tokens + 4 decode steps,
-    kernel vs plain version on the card, the same tokens fed to both (each
-    row its own adapter, or the base weights). A control, reported and not
-    gated, reads how far the plain path itself moves when 1 % of the
-    embedding table's entries move by one bf16 ulp: the model's own
-    amplification of rounding, the floor under any kernel that rounds in
-    another order. With ``floor_gate`` (a model whose control reads above
-    PARITY_BOUND: no implementation that rounds in another order could
-    meet the bound) the gate is that control instead: the kernel path may
-    move the logits no more than the model's own rounding floor. For an
-    MoE model each run's expert choices are logged and the share that
-    differs from the plain run's is reported (not gated), for the kernel
-    run and for the control. With adapters, a planted fault (the kernel
-    path with each row's adapter id rolled by one, as a wrong gather in
-    ``lowrank_linear_batched`` would apply) must read above the gate, so
-    the gate can fail a wrong kernel."""
+def parity_readings(cfg, served, seed, batch=B, prompt=PROMPT,
+                    adapters=True, bumps=1):
+    """The logits of one prefill of ``batch`` x ``prompt`` tokens + 4
+    decode steps (5, batch, vocab), the same tokens fed to every run (each
+    row its own adapter, or the base weights): ``got`` through the
+    kernels, ``want`` through their plain versions, ``controls`` the plain
+    path with 1 % of the embedding table one bf16 ulp up, one run for each
+    of ``bumps`` draws of the moved entries (the model's own amplification
+    of rounding), and with adapters ``fault``, the kernel path with each
+    row's adapter id rolled by one (as a wrong gather in
+    ``lowrank_linear_batched`` would apply). Every run routes freely; each
+    run's expert choices are kept under ``routes``. For an MoE model,
+    ``pinned`` holds the kernel run, the first control and the fault again
+    with every token routed to the experts the plain run chose
+    (``RouteLog(pin=...)``), so they read the arithmetic alone. Also the
+    kernel and plain runs' peak memory."""
     from repro_torch.kernels import ops
     from repro_torch.models import layers
     from repro_torch.models import model as model_lib
@@ -920,64 +1019,273 @@ def phase_parity(cfg, served, seed, phase="parity", batch=B, prompt=PROMPT,
            if adapters else None)
 
     @torch.inference_mode()
-    def run(params=served, ids=ids):
+    def run(params=served, ids=ids, plain=False, pin=None):
         st = model_lib.init_decode_state(cfg, batch, prompt + 4,
                                          device="cuda")
         outs = []
-        with layers.adapter_ids(ids):
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(ops.plain_kernels())
+            routes = stack.enter_context(RouteLog(pin))
+            stack.enter_context(layers.adapter_ids(ids))
             logits, st = model_lib.prefill(params, cfg, prompts, st)
             outs.append(logits)
             for i in range(4):
                 logits, st = model_lib.decode_step(params, cfg, feed[i], st)
                 outs.append(logits)
-        return torch.stack(outs)
+        return torch.stack(outs), routes.picks
+
+    def bumped(j):
+        return dict(served, embed={"w": _bump_embed(served["embed"]["w"],
+                                                    seed + 5 + j)})
 
     torch.cuda.reset_peak_memory_stats()
-    with RouteLog() as got_routes:
-        got = run()
+    got, got_routes = run()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
-    with ops.plain_kernels(), RouteLog() as want_routes:
-        want = run()
+    want, want_routes = run(plain=True)
     plain_peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    bumped = dict(served, embed={"w": _bump_embed(served["embed"]["w"],
-                                                  seed + 5)})
-    with ops.plain_kernels(), RouteLog() as control_routes:
-        control = run(bumped)
-    del bumped
-    fault = run(ids=(ids + 1) % G) if adapters else None
+    controls, control_routes = zip(*(run(bumped(j), plain=True)
+                                     for j in range(bumps)))
+    fault, fault_routes = (run(ids=(ids + 1) % G) if adapters
+                           else (None, None))
+    pinned = None
+    if want_routes:
+        pinned = {"got": run(pin=want_routes)[0],
+                  "control": run(bumped(0), plain=True, pin=want_routes)[0],
+                  "fault": (run(ids=(ids + 1) % G, pin=want_routes)[0]
+                            if adapters else None)}
     torch.cuda.synchronize()
+    return {"got": got, "want": want, "controls": list(controls),
+            "fault": fault, "pinned": pinned, "peak_gib": peak,
+            "plain_peak_gib": plain_peak,
+            "routes": {"got": got_routes, "want": want_routes,
+                       "controls": list(control_routes),
+                       "fault": fault_routes}}
+
+
+def _logit_rel(a, b, scale):
+    return None if a is None else (a - b).abs().max().item() / scale
+
+
+def phase_parity(cfg, served, seed, phase="parity", batch=B, prompt=PROMPT,
+                 adapters=True, floor_gate=False, controls=1,
+                 gate_flips=False):
+    """Kernel vs plain version on the card over ``parity_readings``' one
+    prefill and 4 decode steps, gated at PARITY_BOUND of the logit scale.
+    The control (the plain path with 1 % of the embedding table one bf16
+    ulp up, the largest reading over ``controls`` draws of the moved
+    entries) reads the model's own amplification of rounding, the floor
+    under any kernel that rounds in another order; it is reported, and
+    with ``floor_gate`` (a model whose control reads above PARITY_BOUND:
+    no implementation that rounds in another order could meet the bound)
+    the gate is that control instead. With adapters, the planted fault
+    (rolled adapter ids) must read above the gate, so the gate can fail a
+    wrong kernel. An MoE model is gated twice, each gate with its own
+    control and fault: the free runs as above, and the runs pinned to the
+    plain run's experts at PARITY_BOUND, where no flipped expert choice
+    moves a token's logits and the reading is the kernels' arithmetic.
+    The share of expert choices that differ from the plain run's is
+    reported for the kernel run, the controls and the fault. With
+    ``gate_flips`` (a model whose free logits no gate can hold: its
+    controls reach the planted fault's reading) the free runs are gated
+    on that share instead, the kernel run's at most the largest
+    control's and the fault's above it, and the free logit reading is
+    reported beside them."""
+    t0 = time.perf_counter()
+    r = parity_readings(cfg, served, seed, batch, prompt, adapters,
+                        bumps=controls)
+    got, want = r["got"], r["want"]
     check(bool(torch.isfinite(got).all()), "kernel-path logits not finite")
     scale = want.abs().max().item()
-    rel = (got - want).abs().max().item() / scale
-    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-    floor = (control - want).abs().max().item() / scale
+    rel = _logit_rel(got, want, scale)
+    floors = [_logit_rel(c, want, scale) for c in r["controls"]]
+    floor = max(floors)
     gate = max(PARITY_BOUND, floor) if floor_gate else PARITY_BOUND
-    fault_rel = (None if fault is None else
-                 (fault - want).abs().max().item() / scale)
-    emit({"phase": phase, "arch": cfg.name,
-          "forwards": "prefill + 4 decode", "batch": batch,
-          "prompt": prompt, "adapters": G if adapters else 0,
-          "logit_scale": scale, "max_abs_diff_rel": rel,
-          "per_forward_rel": [(g - w).abs().max().item() / scale
-                              for g, w in zip(got, want)],
-          "greedy_agreement": agree, "bound": PARITY_BOUND, "gate": gate,
-          "peak_gib": peak, "plain_peak_gib": plain_peak,
-          "control_embed_ulp_rel": floor,
-          "control_greedy_agreement":
-              (control.argmax(-1) == want.argmax(-1)).float().mean().item(),
-          "fault_adapter_ids_rolled_rel": fault_rel,
-          **({"moe_routes": len(want_routes.picks),
-              "routing_flip_share": routing_flip_share(got_routes.picks,
-                                                       want_routes.picks),
-              "control_routing_flip_share": routing_flip_share(
-                  control_routes.picks, want_routes.picks)}
-             if want_routes.picks else {})})
-    check(rel <= gate, f"{cfg.name}: end-to-end logits differ by {rel} of "
-                       f"the logit scale > {gate}")
-    check(fault_rel is None or fault_rel > gate,
-          f"{cfg.name}: rolled adapter ids read {fault_rel} <= the gate "
-          f"{gate}: the parity check cannot see a wrong adapter")
+    fault_rel = _logit_rel(r["fault"], want, scale)
+    control = r["controls"][floors.index(floor)]
+    row = {"phase": phase, "arch": cfg.name, "card": card_line(),
+           "forwards": "prefill + 4 decode", "batch": batch,
+           "prompt": prompt, "adapters": G if adapters else 0,
+           "logit_scale": scale, "max_abs_diff_rel": rel,
+           "per_forward_rel": [(g - w).abs().max().item() / scale
+                               for g, w in zip(got, want)],
+           "greedy_agreement":
+               (got.argmax(-1) == want.argmax(-1)).float().mean().item(),
+           "bound": PARITY_BOUND, "gate": None if gate_flips else gate,
+           "peak_gib": r["peak_gib"], "plain_peak_gib": r["plain_peak_gib"],
+           "control_embed_ulp_rel": floor, "controls_embed_ulp_rel": floors,
+           "control_greedy_agreement":
+               (control.argmax(-1) == want.argmax(-1)).float().mean().item(),
+           "fault_adapter_ids_rolled_rel": fault_rel}
+    routes, pinned = r["routes"], r["pinned"]
+    flips = control_flips = fault_flips = None
+    if pinned is not None:
+        flips = routing_flip_share(routes["got"], routes["want"])
+        control_flips = max(routing_flip_share(c, routes["want"])
+                            for c in routes["controls"])
+        fault_flips = (routing_flip_share(routes["fault"], routes["want"])
+                       if adapters else None)
+        row.update(
+            moe_routes=len(routes["want"]), routing_flip_share=flips,
+            control_routing_flip_share=control_flips,
+            fault_routing_flip_share=fault_flips,
+            flip_gate=control_flips if gate_flips else None,
+            pinned_max_abs_diff_rel=_logit_rel(pinned["got"], want, scale),
+            pinned_control_embed_ulp_rel=_logit_rel(pinned["control"],
+                                                    want, scale),
+            pinned_fault_adapter_ids_rolled_rel=_logit_rel(
+                pinned["fault"], want, scale),
+            pinned_gate=PARITY_BOUND)
+    row["phase_s"] = time.perf_counter() - t0
+    emit(row)
+    if gate_flips:
+        check(pinned is not None, f"{cfg.name}: gate_flips needs MoE layers")
+        check(flips <= control_flips,
+              f"{cfg.name}: the kernel run flips {flips} of the expert "
+              f"choices > its controls' {control_flips}")
+        check(fault_flips is None or fault_flips > control_flips,
+              f"{cfg.name}: rolled adapter ids flip {fault_flips} of the "
+              f"expert choices <= the controls' {control_flips}: the gate "
+              f"cannot see a wrong adapter")
+    else:
+        check(rel <= gate, f"{cfg.name}: end-to-end logits differ by {rel} "
+                           f"of the logit scale > {gate}")
+        check(fault_rel is None or fault_rel > gate,
+              f"{cfg.name}: rolled adapter ids read {fault_rel} <= the gate "
+              f"{gate}: the parity check cannot see a wrong adapter")
+    if pinned is not None:
+        check(row["pinned_max_abs_diff_rel"] <= PARITY_BOUND,
+              f"{cfg.name}: with the plain run's experts the logits differ "
+              f"by {row['pinned_max_abs_diff_rel']} of the logit scale > "
+              f"{PARITY_BOUND}")
+        check(fault_rel is None or
+              row["pinned_fault_adapter_ids_rolled_rel"] > PARITY_BOUND,
+              f"{cfg.name}: with the plain run's experts rolled adapter ids "
+              f"read {row['pinned_fault_adapter_ids_rolled_rel']} <= "
+              f"{PARITY_BOUND}")
+
+
+# ------------------------------------- Mamba scan and MLA decode times --
+
+def mamba_scan_bound(b, l, di, ds):
+    """(ms, 'bytes'|'operations') of one Mamba layer's scan: x (bf16) and
+    Δ (fp32) (B, L, di), B and C (fp32) (B, L, ds), A (di, ds) and h0
+    (fp32) read once, y (B, L, di) and the final h written once (fp32); 7
+    fp32 operations per (b, t, d, s) (Δ·A, its exp, the decay times h,
+    (Δx)·B, the sum, the readout's multiply and add) and 1 per (b, t, d)
+    (Δ·x), the exp counted as one."""
+    nbytes = (b * l * di * (2 + 4) + 2 * b * l * ds * 4 + di * ds * 4
+              + b * di * ds * 4 + b * l * di * 4 + b * di * ds * 4)
+    return _bound(nbytes, [(7.0 * b * l * di * ds + b * l * di, PEAK_FP32)])
+
+
+def phase_mamba_scan_times(gen, card):
+    """One jamba-1.5-large-398b Mamba layer's selective scan
+    (``models/mamba.py::_scan``, plain PyTorch: no kernel of the port runs
+    it) at d_inner 16384, d_state 16, at SlotServer's admission prefill
+    (1, PROMPT) and at decode (B, 1), eager and from a CUDA graph, against
+    its bound."""
+    from repro_torch.models import mamba as mamba_lib
+    di, ds = 2 * 8192, 16
+    a = -torch.arange(1, ds + 1, dtype=torch.float32,
+                      device="cuda").expand(di, ds)
+    rows = []
+    for label, b, l in (("admission prefill", 1, PROMPT), ("decode", B, 1)):
+        def case():
+            def rnd(*shape):
+                return torch.randn(*shape, generator=gen, device="cuda")
+            return dict(xc=rnd(b, l, di).to(torch.bfloat16),
+                        delta=torch.nn.functional.softplus(rnd(b, l, di)),
+                        bmat=rnd(b, l, ds), cmat=rnd(b, l, ds),
+                        h=0.1 * rnd(b, di, ds))
+        sets = [case() for _ in range(4)]
+        b_ms, b_by = mamba_scan_bound(b, l, di, ds)
+        row = {"phase": "mamba_scan_times", "card": card, "shape": label,
+               "B": b, "L": l, "d_inner": di, "d_state": ds,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "note": "plain PyTorch: the scan has no kernel"}
+        _timed(row, {"ms": lambda c: mamba_lib._scan(
+            c["xc"], c["delta"], c["bmat"], c["cmat"], a, c["h"])}, sets)
+        row["bound_share"] = b_ms / row["ms"]
+        row["device_bound_share"] = b_ms / row["device_ms"]
+        emit(row)
+        rows.append(row)
+        del sets
+    return rows
+
+
+def _leaf_bytes(leaf, used):
+    """Bytes of one param leaf read once; a served leaf's tables only for
+    the ``used`` adapters."""
+    from repro_torch.models import layers
+    if isinstance(leaf, layers.MultiAdapterDelta):
+        per = (leaf.bases[0].numel() + leaf.rts[0].numel() + 1) * 4
+        return leaf.w.numel() * leaf.w.element_size() + used * per
+    return leaf.numel() * leaf.element_size()
+
+
+def phase_mla_decode_times(cfg, served, gen, card, cache_len=PROMPT + NEW):
+    """One deepseek-v2-236b MLA layer's absorbed decode step
+    (``attention.mla_decode``: q_a, q_b, kv_a and wo through
+    ``lowrank_linear_batched`` with B rows of 8 adapters, the attention in
+    the compressed space in plain PyTorch) over a cache holding PROMPT
+    positions of ``cache_len`` slots, eager and from a CUDA graph, and the
+    same step with the kernels' plain versions, against its bound."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import layers
+    from repro_torch.models import model as model_lib
+    lp = model_lib._block(served["blocks"][0], 0)["attn"]
+    kw = model_lib._mla_kwargs(cfg)
+    h, kvl, rope = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_dim
+    ids = torch.arange(B, dtype=torch.int32, device="cuda") % G
+
+    def case():
+        cache = attn_lib.mla_cache_init(B, cache_len, kvl, rope,
+                                        device="cuda")
+        cache.ckv.copy_(torch.randn(cache.ckv.shape, generator=gen,
+                                    device="cuda"))
+        cache.kpe.copy_(torch.randn(cache.kpe.shape, generator=gen,
+                                    device="cuda"))
+        cache.pos[:, :PROMPT] = torch.arange(PROMPT, dtype=torch.int32,
+                                             device="cuda")
+        return dict(x=torch.randn(B, 1, cfg.d_model, generator=gen,
+                                  device="cuda").to(torch.bfloat16),
+                    cache=cache,
+                    t=torch.tensor(PROMPT, dtype=torch.int32, device="cuda"))
+    sets = [case() for _ in range(4)]
+
+    def step(c):
+        with layers.adapter_ids(ids):
+            return attn_lib.mla_decode(lp, c["x"], c["cache"], c["t"], **kw)
+
+    def plain(c):
+        with ops.plain_kernels():
+            return step(c)
+
+    nbytes = (sum(_leaf_bytes(v, G) for v in lp.values())
+              + 2 * B * cfg.d_model * 2
+              + B * cache_len * ((kvl + rope) * 2 + 4))
+    weights = [(v.w if isinstance(v, layers.MultiAdapterDelta) else v)
+               for k, v in lp.items() if k != "kv_b" and v.ndim == 2]
+    mm = sum(2.0 * B * w.shape[0] * w.shape[1] for w in weights)
+    lora = sum(2.0 * B * R * sum(v.w.shape) for v in lp.values()
+               if isinstance(v, layers.MultiAdapterDelta))
+    nope, vd = cfg.qk_nope_dim, cfg.v_head_dim
+    attn = 2.0 * B * h * (nope * kvl + cache_len * (2 * kvl + rope)
+                          + kvl * vd)
+    b_ms, b_by = _bound(nbytes, [(mm, PEAK_BF16), (lora + attn, PEAK_FP32)])
+    row = {"phase": "mla_decode_times", "card": card, "arch": cfg.name,
+           "B": B, "cache_slots": cache_len, "filled": PROMPT,
+           "adapters": G, "rank": R, "bound_ms": b_ms, "bound_by": b_by,
+           "library": "no single call"}
+    _timed(row, {"ms": step, "plain_ms": plain}, sets)
+    row["bound_share"] = b_ms / row["ms"]
+    row["device_bound_share"] = b_ms / row["device_ms"]
+    emit(row)
+    del sets
+    return row
 
 
 def _scan_case(gen, b, l, dtype=torch.bfloat16, w_dtype=torch.float32,
@@ -1463,6 +1771,10 @@ FLASH_PATH = [
     ("granite generate prefill", B, PROMPT, PROMPT, 16, 8, 64, 0),
     ("mistral-nemo admission prefill", 1, PROMPT, PROMPT, 32, 8, 128, 0),
     ("mistral-nemo generate prefill", B, PROMPT, PROMPT, 32, 8, 128, 0),
+    ("jamba admission prefill", 1, PROMPT, PROMPT, JAMBA_H, JAMBA_KV,
+     JAMBA_D, 0),
+    ("jamba generate prefill", B, PROMPT, PROMPT, JAMBA_H, JAMBA_KV,
+     JAMBA_D, 0),
     ("roberta evaluation forward", 128, 64, 64, 12, 12, 64, 0),
     ("vit evaluation forward", 32, 200, 200, 12, 12, 64, 0),
 ]
@@ -3894,6 +4206,32 @@ def main(argv=None) -> int:
     del served
     torch.cuda.empty_cache()
 
+    # serving paths at their published widths with the depth cut
+    # (CUT_LAYERS): deepseek-v2-236b (MLA + MoE) and jamba-1.5-large-398b
+    # (the Mamba / attention hybrid)
+    ds_err, ds_checked = phase_kernel_checks(gen, DS_SHAPES)
+    cfg, served, ds_launches, ds_routes = phase_serve(
+        args.seed, card, {"lowrank_linear_batched": ds_checked},
+        "deepseek-v2-236b", DS_PER_FORWARD, "serve_deepseek",
+        requests=CUT_REQUESTS, new=CUT_NEW)
+    phase_parity(cfg, served, args.seed, phase="parity_deepseek",
+                 floor_gate=True, controls=MOE_CONTROLS)
+    phase_mla_decode_times(cfg, served, gen, card)
+    del served
+    torch.cuda.empty_cache()
+    jb_err, jb_checked = phase_kernel_checks(gen, JAMBA_SHAPES,
+                                             two_d=JAMBA_TWO_D)
+    cfg, served, jb_launches, jb_routes = phase_serve(
+        args.seed, card, {"lowrank_linear_batched": jb_checked,
+                          "flash_attention": flash_checked},
+        "jamba-1.5-large-398b", JAMBA_PER_FORWARD, "serve_jamba",
+        per_prefill=JAMBA_PER_PREFILL, requests=CUT_REQUESTS, new=CUT_NEW)
+    phase_parity(cfg, served, args.seed, phase="parity_jamba",
+                 controls=MOE_CONTROLS, gate_flips=True)
+    del served
+    torch.cuda.empty_cache()
+    phase_mamba_scan_times(gen, card)
+
     # training path, the paper's roberta and vit backbones
     backbone_checked = {name: train_checked[name][1] for name in
                         ("lowrank_linear", "galore_precond_step",
@@ -3936,20 +4274,24 @@ def main(argv=None) -> int:
                      + rwkv_launches["lowrank_linear_batched"]
                      + sc_launches["lowrank_linear_batched"]
                      + gr_launches["lowrank_linear_batched"]
-                     + nemo_launches["lowrank_linear_batched"]),
+                     + nemo_launches["lowrank_linear_batched"]
+                     + ds_launches["lowrank_linear_batched"]
+                     + jb_launches["lowrank_linear_batched"]),
         "launches_by_path": {
             "serve": launches["lowrank_linear_batched"],
             "serve_rwkv": rwkv_launches["lowrank_linear_batched"],
             "serve_starcoder": sc_launches["lowrank_linear_batched"],
             "serve_granite": gr_launches["lowrank_linear_batched"],
-            "serve_nemo": nemo_launches["lowrank_linear_batched"]},
+            "serve_nemo": nemo_launches["lowrank_linear_batched"],
+            "serve_deepseek": ds_launches["lowrank_linear_batched"],
+            "serve_jamba": jb_launches["lowrank_linear_batched"]},
         "launches_by_route": {
             k: sum(rt["lowrank_linear_batched"][k]
                    for rt in (routes, rwkv_routes, sc_routes, gr_routes,
-                              nemo_routes))
+                              nemo_routes, ds_routes, jb_routes))
             for k in routes["lowrank_linear_batched"]},
         "max_abs_err": max(max_err, rwkv_ll_err, sc_ll_err, gr_err,
-                           nemo_err),
+                           nemo_err, ds_err, jb_err),
         "ms": per_layer["ms"], "plain_ms": per_layer["plain_ms"],
         "bound_ms": per_layer["bound_ms"], "bound_by": "bytes"
         if all(r["bound_by"] == "bytes" for r in decode) else "operations",
@@ -4077,6 +4419,7 @@ def main(argv=None) -> int:
                      + long_launches["flash_attention"]
                      + gr_launches["flash_attention"]
                      + nemo_launches["flash_attention"]
+                     + jb_launches["flash_attention"]
                      + sum(ln["flash_attention"]
                            for ln, _ in backbone.values())),
         "launches_by_path": {
@@ -4085,12 +4428,13 @@ def main(argv=None) -> int:
             "long_prefill_starcoder": long_launches["flash_attention"],
             "serve_granite": gr_launches["flash_attention"],
             "serve_nemo": nemo_launches["flash_attention"],
+            "serve_jamba": jb_launches["flash_attention"],
             **{path: ln["flash_attention"]
                for path, (ln, _) in backbone.items()}},
         "launches_by_route": {
             k: sum(rt["flash_attention"][k]
                    for rt in (routes, sc_routes, long_routes, gr_routes,
-                              nemo_routes)
+                              nemo_routes, jb_routes)
                    + tuple(rt for _, rt in backbone.values()))
             for k in long_routes["flash_attention"]},
         "max_abs_err": flash_err,

@@ -17,7 +17,8 @@ LoRA baselines and FedAvg beside the GaLore methods — in
 ``core.fed.FedEngine``, over sampled and faulted populations. The paper's
 own backbones (roberta-, vit- and llama-like), MoE (granite-moe), the
 stub vlm / audio frontends and the training CLI (``launch.train``) run
-through the same entry points. Every kernel is CUDA C++ for sm_90a
+through the same entry points, and so do deepseek-v2-236b (MLA) and the
+Mamba / attention hybrid jamba-1.5-large-398b. Every kernel is CUDA C++ for sm_90a
 (``kernels/csrc``).
 """
 import torch

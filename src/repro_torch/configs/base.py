@@ -1,8 +1,8 @@
 """Architecture config schema + registry (port of ``repro/configs/base.py``).
 
 The schema keeps every field of the JAX ``ArchConfig`` so a config module
-reads the same in both packages; ``param_dtype`` is a torch dtype. Only the
-configs the port can run are registered (``_load_all``).
+reads the same in both packages; ``param_dtype`` is a torch dtype. Every
+config of the JAX package is registered (``_load_all``).
 """
 from __future__ import annotations
 
@@ -154,13 +154,19 @@ def get_config(name: str) -> ArchConfig:
     if name not in _REGISTRY:
         _load_all()
     if name not in _REGISTRY:
-        raise KeyError(f"{name!r} is not registered in the port "
-                       f"(ported: {sorted(_REGISTRY)})")
+        raise KeyError(f"{name!r} is not registered "
+                       f"(registered: {sorted(_REGISTRY)})")
     return _REGISTRY[name]
 
 
+def list_configs() -> List[str]:
+    _load_all()
+    return sorted(_REGISTRY)
+
+
 def _load_all():
-    from . import (command_r_35b, granite_moe_1b_a400m,  # noqa: F401
+    from . import (command_r_35b, deepseek_v2_236b,  # noqa: F401
+                   granite_moe_1b_a400m, jamba_1_5_large_398b,
                    mistral_nemo_12b, musicgen_medium, paper_llama_like,
                    paper_roberta_like, paper_vit_like, pixtral_12b,
                    qwen1_5_0_5b, rwkv6_1_6b, starcoder2_7b)

@@ -171,6 +171,19 @@ def _check_config(cfg: FedConfig) -> None:
                          f"{agg.ROBUST_MODES}")
 
 
+def _check_trainable_model(params: PyTree) -> None:
+    """Refuse a model with MLA or Mamba layers (an attention dict holding
+    ``kv_b``, or a ``mamba`` dict): their rounds, the lift-free read
+    through MLA's ``kv_b`` and Mamba's projections and the reference's
+    MLA + ``attn_chunk`` gate on it, are ROADMAP Queue 1 item 11.9."""
+    blocks = params.get("blocks", ()) if isinstance(params, dict) else ()
+    for block in blocks:
+        if "mamba" in block or "kv_b" in block.get("attn", {}):
+            raise NotImplementedError(
+                "training a model with MLA or Mamba layers is ROADMAP "
+                "Queue 1 item 11.9; only its serving path is ported")
+
+
 # ------------------------------------------------------------ trainables ----
 
 def split_trainable(params: PyTree, target_fn) -> tuple:
@@ -227,6 +240,7 @@ class FedEngine:
     def __init__(self, cfg: FedConfig, loss_fn: Callable, params: PyTree,
                  target_fn: Callable = None, eval_fn: Callable = None):
         _check_config(cfg)
+        _check_trainable_model(params)
         self.cfg = cfg
         self.spec = METHODS[cfg.method]
         self.loss_fn = loss_fn

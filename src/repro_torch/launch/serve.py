@@ -30,11 +30,15 @@ tables (:mod:`repro_torch.launch.adapters`). Everything runs under
 when asked).
 
 Every registered config serves: the GQA attention families (qwen1.5-0.5b,
-the CLI's default ``--arch``, starcoder2-7b, mistral-nemo-12b,
-command-r-35b, the paper's backbones, the vlm / audio backbones on their
-tokens, and granite-moe-1b-a400m, whose experts and routers stay frozen:
-the adapters wrap the attention projections only) and RWKV6
-(rwkv6-1.6b), whose recurrent state takes the place of the KV cache:
+starcoder2-7b, mistral-nemo-12b, command-r-35b, the paper's backbones,
+the vlm / audio backbones on their tokens, and granite-moe-1b-a400m,
+whose experts and routers stay frozen: the adapters wrap the attention
+projections only); deepseek-v2-236b, whose MLA layers keep a compressed
+cache and decode in the absorbed form (``kv_b`` unadapted); the hybrid
+jamba-1.5-large-398b, whose Mamba layers carry a conv shift register and
+an SSM state beside its attention layers' KV caches; and RWKV6
+(rwkv6-1.6b, the CLI's default ``--arch``, as in the JAX package), whose
+recurrent state takes the place of the KV cache:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
       --adapters 8 --adapter-rank 16 --mode continuous
@@ -43,6 +47,8 @@ the adapters wrap the attention projections only) and RWKV6
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch granite-moe-1b-a400m --adapters 8 --adapter-rank 16 \
       --mode continuous
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch jamba-1.5-large-398b --smoke --adapters 4 --device cpu
 """
 from __future__ import annotations
 
@@ -201,9 +207,10 @@ class Request:
 
 
 def _insert(state, tok, slot: int, sub_state, sub_tok) -> None:
-    """Write one prefilled request's layer-state rows (KV cache, or RWKV
-    shifts and WKV state), position and first token into slot ``slot`` of
-    the live batched state, in place (the JAX version builds new arrays).
+    """Write one prefilled request's layer-state rows (KV cache, MLA's
+    compressed cache, Mamba's conv taps and SSM state, or RWKV shifts and
+    WKV state), position and first token into slot ``slot`` of the live
+    batched state, in place (the JAX version builds new arrays).
     Layer-state leaves are stacked (nb, B, ...), so the slot axis is 1."""
     for big, small in zip(state.layers, sub_state.layers):
         for b_leaf, s_leaf in zip(big, small):
@@ -372,7 +379,7 @@ class SlotServer:
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--arch", default="rwkv6-1.6b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--mode", choices=("eager", "scan", "continuous"),
                     default="scan")

@@ -7,7 +7,8 @@ own name with numpy children and become the port's classes of that name:
 ``MultiAdapterDelta`` in params; ``GaloreState``, ``GaloreBlockState``,
 ``DenseMoments`` and the chain's ``ClipState``, ``WeightDecayState`` and
 ``ScaleByLrState`` in an optimizer state (step counts and seeds become
-host ints, as the port keeps them).
+host ints, as the port keeps them); ``DecodeState`` with its ``KVCache``,
+``MLACache``, ``MambaState`` or ``RwkvState`` layers in a decode state.
 """
 from __future__ import annotations
 
@@ -20,7 +21,9 @@ from ..core import galore as gal
 from ..optim.adamw import WeightDecayState
 from ..optim.base import ClipState, ScaleByLrState
 from ..utils import tree
+from . import attention, mamba, rwkv
 from .layers import MultiAdapterDelta
+from .model import DecodeState
 
 PyTree = Any
 
@@ -108,3 +111,20 @@ def opt_state_to_numpy(state):
     return tree.tree_map(
         lambda x: x.detach().cpu().numpy() if torch.is_tensor(x) else x,
         state)
+
+
+_LAYER_STATES = {c.__name__: c for c in (attention.KVCache,
+                                         attention.MLACache,
+                                         mamba.MambaState, rwkv.RwkvState)}
+
+
+def decode_state_from_jax(state_of_numpy, device) -> DecodeState:
+    """The port's ``DecodeState`` from a JAX one given as numpy: ``t`` and
+    each period position's stacked layer state by its class name, bits and
+    dtypes kept (an RWKV state's shifts must already hold the activation
+    dtype, as the port writes them in place)."""
+    layers = [_LAYER_STATES[type(s).__name__](
+        *(_to_tensor(x, device, None) for x in s))
+        for s in state_of_numpy.layers]
+    return DecodeState(t=_to_tensor(state_of_numpy.t, device, None),
+                       layers=layers)

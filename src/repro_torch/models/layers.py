@@ -20,8 +20,11 @@ from ..kernels import ops as kops
 
 def dense_init(gen: torch.Generator, shape, scale: float = 0.02,
                dtype=torch.float32):
-    return (scale * torch.randn(shape, generator=gen,
-                                device=gen.device)).to(dtype)
+    """N(0, scale²) weights. The draw is scaled in place, so a bf16 leaf
+    holds one fp32 copy at a time beside it (a full-width expert stack is
+    20 GB in fp32)."""
+    return torch.randn(shape, generator=gen,
+                       device=gen.device).mul_(scale).to(dtype)
 
 
 # ------------------------------------------------- lift-free delta context --

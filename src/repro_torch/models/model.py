@@ -1,4 +1,4 @@
-"""Config-driven decoder: the attention families and RWKV6 (port of
+"""Config-driven decoder for every assigned family (port of
 ``repro/models/model.py``:
 ``init_params``, ``forward``, ``loss_fn``, ``prefill``, ``decode_step`` and
 the decode state).
@@ -14,16 +14,20 @@ return it with the new position. ``forward`` and ``loss_fn`` are the
 training read: autograd runs through the loop, with no activation
 checkpointing.
 
-Ported: GQA attention with a dense MLP or an MoE FFN (``models/moe.py``),
-RoPE, sinusoidal or no positions, and the vlm / audio backbones' prefix
-of frontend embeddings (``embeds``, from ``models/frontend.py``'s stubs)
-for all five entry points; and RWKV6 (time-mix + channel-mix,
-``models/rwkv.py``), also for all five: ``forward`` / ``loss_fn`` start
-each mix from a fresh zero state, as the JAX ``_apply_mixer`` /
-``_apply_ffn`` do, and differentiate the WKV recurrence through
-``kernels.ops.rwkv6_scan`` (the forward and backward kernels on the
-card). MLA and Mamba raise ``NotImplementedError`` naming their ROADMAP
-items.
+Every layer kind of ``ArchConfig.layer_kinds`` runs through all five
+entry points: GQA attention, MLA (DeepSeek-V2: a compressed cache,
+absorbed-form decode; ``models/attention.py``) and Mamba (the hybrid's
+recurrent layers; ``models/mamba.py``) as mixers, each with a dense MLP
+or an MoE FFN (``models/moe.py``, shared experts included); and RWKV6
+(time-mix + channel-mix, ``models/rwkv.py``). Positions are RoPE,
+sinusoidal or none, and the vlm / audio backbones take a prefix of
+frontend embeddings (``embeds``, from ``models/frontend.py``'s stubs).
+``forward`` / ``loss_fn`` start each recurrent mix from a fresh zero
+state, as the JAX ``_apply_mixer`` / ``_apply_ffn`` do, and
+differentiate the WKV recurrence through ``kernels.ops.rwkv6_scan`` (the
+forward and backward kernels on the card). A hybrid's decode state holds
+each period position's own kind: KV caches, MLA caches or Mamba states,
+all written in place.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from .. import resolve_device
 from ..configs.base import ArchConfig
 from ..utils import tree
 from . import attention as attn_lib
+from . import mamba as mamba_lib
 from . import moe as moe_lib
 from . import rwkv as rwkv_lib
 from .layers import (apply_norm, dense_init, glu_mlp, glu_mlp_init, mlp,
@@ -43,28 +48,26 @@ from .layers import (apply_norm, dense_init, glu_mlp, glu_mlp_init, mlp,
 PyTree = Any
 
 
-_LATER = {"mla": "MLA (ROADMAP Queue 1 item 11.5)",
-          "mamba": "Mamba and the hybrids (ROADMAP Queue 1 item 11.6)"}
+_MIXERS = ("attn", "mla", "mamba")
 
 
 def _check_ported(cfg: ArchConfig) -> None:
+    """Refuse a config neither package runs: a positional scheme other
+    than the schema's rope | sinusoidal | none, or RWKV layers mixed with
+    other kinds."""
     kinds = set(cfg.layer_kinds())
-    if kinds == {("rwkv", "cmix")}:
-        return
-    for mix, _ in kinds:
-        if mix in _LATER:
-            raise NotImplementedError(
-                f"{cfg.name}: {_LATER[mix]} is a later slice of the port")
-    if (not kinds <= {("attn", "mlp"), ("attn", "moe")}
+    recurrent = kinds == {("rwkv", "cmix")}
+    if (not (recurrent or kinds <= {(m, f) for m in _MIXERS
+                                    for f in ("mlp", "moe")})
             or cfg.pos_emb not in ("rope", "none", "sinusoidal")):
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {sorted(kinds)} / pos_emb "
-            f"{cfg.pos_emb!r} are not ported (ROADMAP Queue 1 item 11)")
+            f"{cfg.pos_emb!r} are not a supported configuration")
 
 
 # ------------------------------------------------------------------ init ----
 
-def _init_stacked_layer(gen, cfg: ArchConfig, n_blocks: int,
+def _init_stacked_layer(gen, cfg: ArchConfig, n_blocks: int, mix: str,
                         ffn: str) -> dict:
     """One period position's params, every leaf stacked (n_blocks, ...)."""
     dtype, dev, lead = cfg.param_dtype, gen.device, (n_blocks,)
@@ -77,11 +80,23 @@ def _init_stacked_layer(gen, cfg: ArchConfig, n_blocks: int,
                                    lead=lead),
                 "cmix": rwkv_lib.channel_mix_init(gen, cfg.d_model, cfg.d_ff,
                                                   dtype, lead=lead)}
-    p = {"norm1": norm_init(cfg.d_model, cfg.norm, device=dev, lead=lead),
-         "attn": attn_lib.gqa_init(gen, cfg.d_model, cfg.n_heads,
-                                   cfg.n_kv_heads, cfg.hd, cfg.qkv_bias,
-                                   dtype, lead=lead),
-         "norm2": norm_init(cfg.d_model, cfg.norm, device=dev, lead=lead)}
+    p = {"norm1": norm_init(cfg.d_model, cfg.norm, device=dev, lead=lead)}
+    if mix == "attn":
+        p["attn"] = attn_lib.gqa_init(gen, cfg.d_model, cfg.n_heads,
+                                      cfg.n_kv_heads, cfg.hd, cfg.qkv_bias,
+                                      dtype, lead=lead)
+    elif mix == "mla":
+        p["attn"] = attn_lib.mla_init(
+            gen, cfg.d_model, cfg.n_heads, q_lora=cfg.q_lora_rank,
+            kv_lora=cfg.kv_lora_rank, qk_nope=cfg.qk_nope_dim,
+            qk_rope=cfg.qk_rope_dim, v_dim=cfg.v_head_dim, dtype=dtype,
+            lead=lead)
+    else:
+        p["mamba"] = mamba_lib.mamba_init(
+            gen, cfg.d_model, expand=cfg.mamba_expand,
+            d_state=cfg.mamba_d_state, d_conv=cfg.mamba_d_conv, dtype=dtype,
+            lead=lead)
+    p["norm2"] = norm_init(cfg.d_model, cfg.norm, device=dev, lead=lead)
     if ffn == "moe":
         p["moe"] = moe_lib.moe_init(gen, cfg.d_model, cfg.n_experts,
                                     cfg.moe_d_ff or cfg.d_ff,
@@ -107,8 +122,8 @@ def init_params(cfg: ArchConfig, seed: int = 0,
     params = {
         "embed": {"w": dense_init(gen, (cfg.vocab_size, cfg.d_model),
                                   dtype=cfg.param_dtype)},
-        "blocks": [_init_stacked_layer(gen, cfg, cfg.n_blocks(), ffn)
-                   for _, ffn in kinds],
+        "blocks": [_init_stacked_layer(gen, cfg, cfg.n_blocks(), mix, ffn)
+                   for mix, ffn in kinds],
         "final_norm": norm_init(cfg.d_model, cfg.norm, device=dev),
     }
     if not cfg.tie_embeddings:
@@ -178,19 +193,28 @@ def forward(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor,
     and the tokens. Returns (fp32 logits over both, moe aux loss summed
     over the layers — zero without MoE)."""
     _check_ported(cfg)
+    kinds = cfg.layer_kinds()[: cfg.block_period()]
     h = _embed(params, cfg, tokens, embeds)
     positions = torch.arange(h.shape[1], device=h.device)
     aux = torch.zeros((), device=h.device)
     for i in range(cfg.n_blocks()):
-        for j in range(cfg.block_period()):
+        for j, (mix, _) in enumerate(kinds):
             lp = _block(params["blocks"][j], i)
-            if cfg.rwkv:
+            if mix == "rwkv":
                 h = _rwkv_train_layer(lp, cfg, h)
                 continue
             x = apply_norm(h, lp["norm1"], cfg.norm)
-            out, _ = attn_lib.gqa_forward(
-                lp["attn"], x, positions, attn_chunk=cfg.attn_chunk,
-                **_attn_kwargs(cfg))
+            if mix == "attn":
+                out, _ = attn_lib.gqa_forward(
+                    lp["attn"], x, positions, attn_chunk=cfg.attn_chunk,
+                    **_attn_kwargs(cfg))
+            elif mix == "mla":
+                out, _ = attn_lib.mla_forward(
+                    lp["attn"], x, positions, attn_chunk=cfg.attn_chunk,
+                    **_mla_kwargs(cfg))
+            else:
+                out = mamba_lib.mamba_forward(lp["mamba"], x,
+                                              **_mamba_kwargs(cfg))
             h, a = _ffn(lp, cfg, h + out)
             aux = aux + a
     return _logits(params, cfg, h), aux
@@ -217,13 +241,25 @@ def loss_fn(params: PyTree, cfg: ArchConfig, batch, aux_coef: float = 0.01
 class DecodeState(NamedTuple):
     t: torch.Tensor     # int32 absolute position: 0-d (homogeneous batch)
                         # or (B,) per-slot (continuous batching)
-    layers: PyTree      # list (period) of stacked per-block KVCaches or
-                        # RwkvStates
+    layers: PyTree      # list (period) of stacked per-block KVCaches,
+                        # MLACaches, MambaStates or RwkvStates
 
 
-def _layer_state_init(cfg: ArchConfig, batch: int, cache_len: int, dev):
+def _layer_state_init(cfg: ArchConfig, mix: str, batch: int, cache_len: int,
+                      dev):
     lead = (cfg.n_blocks(),)
-    if cfg.rwkv:
+    if mix == "mla":
+        return attn_lib.mla_cache_init(batch, cache_len, cfg.kv_lora_rank,
+                                       cfg.qk_rope_dim, device=dev,
+                                       lead=lead)
+    if mix == "mamba":
+        # bf16 conv taps whatever the activation dtype, fp32 SSM state,
+        # as the JAX package allocates them.
+        return mamba_lib.mamba_state_init(
+            batch, cfg.d_model, expand=cfg.mamba_expand,
+            d_state=cfg.mamba_d_state, d_conv=cfg.mamba_d_conv, device=dev,
+            lead=lead)
+    if mix == "rwkv":
         # The JAX package starts the shifts in bf16 and its step replaces
         # them with x[:, -1] in the activation dtype; the port writes them
         # in place, so it allocates that dtype up front.
@@ -236,15 +272,17 @@ def _layer_state_init(cfg: ArchConfig, batch: int, cache_len: int, dev):
 
 def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
                       per_slot: bool = False, device="cuda") -> DecodeState:
-    """Empty per-layer states stacked (n_blocks, B, ...): bf16 KV caches of
-    ``cache_len`` slots (every attention config, as in the JAX package), or
-    RWKV states (shifts in the activation dtype, fp32 WKV; ``cache_len``
-    unused). ``per_slot`` starts ``t`` as a (B,) vector — each batch row
-    advances at its own depth."""
+    """Empty per-layer states stacked (n_blocks, B, ...), one per period
+    position by its mixer: bf16 KV caches of ``cache_len`` slots (GQA, as
+    in the JAX package), bf16 compressed MLA caches of ``cache_len``
+    slots, Mamba states (bf16 conv taps, fp32 SSM state) or RWKV states
+    (shifts in the activation dtype, fp32 WKV); the recurrent ones ignore
+    ``cache_len``. ``per_slot`` starts ``t`` as a (B,) vector — each batch
+    row advances at its own depth."""
     _check_ported(cfg)
     dev = resolve_device(device)
-    layers = [_layer_state_init(cfg, batch, cache_len, dev)
-              for _ in range(cfg.block_period())]
+    layers = [_layer_state_init(cfg, mix, batch, cache_len, dev)
+              for mix, _ in cfg.layer_kinds()[: cfg.block_period()]]
     t = torch.zeros((batch,) if per_slot else (), dtype=torch.int32,
                     device=dev)
     return DecodeState(t=t, layers=layers)
@@ -254,6 +292,18 @@ def _attn_kwargs(cfg: ArchConfig) -> dict:
     return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
                 rope=(cfg.pos_emb == "rope"), rope_theta=cfg.rope_theta,
                 window=cfg.sliding_window)
+
+
+def _mla_kwargs(cfg: ArchConfig) -> dict:
+    return dict(n_heads=cfg.n_heads, qk_nope=cfg.qk_nope_dim,
+                qk_rope=cfg.qk_rope_dim, kv_lora=cfg.kv_lora_rank,
+                v_dim=cfg.v_head_dim, rope_theta=cfg.rope_theta,
+                window=cfg.sliding_window)
+
+
+def _mamba_kwargs(cfg: ArchConfig) -> dict:
+    return dict(d_model=cfg.d_model, expand=cfg.mamba_expand,
+                d_state=cfg.mamba_d_state, d_conv=cfg.mamba_d_conv)
 
 
 def _rwkv_layer(lp, st, cfg: ArchConfig, h):
@@ -279,16 +329,24 @@ def decode_step(params: PyTree, cfg: ArchConfig, token: torch.Tensor,
         pos = t[:, None] if t.ndim else t[None]       # (B, 1) | (1,)
         emb = sinusoidal_positions(pos, cfg.d_model)
         h = h + (emb if t.ndim else emb[None]).to(h.dtype)
+    kinds = cfg.layer_kinds()[: cfg.block_period()]
     for i in range(cfg.n_blocks()):
-        for j in range(cfg.block_period()):
+        for j, (mix, _) in enumerate(kinds):
             lp = _block(params["blocks"][j], i)
             st = _block(state.layers[j], i)
-            if cfg.rwkv:
+            if mix == "rwkv":
                 h = _rwkv_layer(lp, st, cfg, h)
                 continue
             x = apply_norm(h, lp["norm1"], cfg.norm)
-            out, _ = attn_lib.gqa_decode(lp["attn"], x, st, state.t,
-                                         **_attn_kwargs(cfg))
+            if mix == "attn":
+                out, _ = attn_lib.gqa_decode(lp["attn"], x, st, state.t,
+                                             **_attn_kwargs(cfg))
+            elif mix == "mla":
+                out, _ = attn_lib.mla_decode(lp["attn"], x, st, state.t,
+                                             **_mla_kwargs(cfg))
+            else:
+                out, _ = mamba_lib.mamba_decode(lp["mamba"], x, st,
+                                                **_mamba_kwargs(cfg))
             h, _ = _ffn(lp, cfg, h + out)
     logits = _logits(params, cfg, h)[:, 0, :]
     return logits, DecodeState(t=state.t + 1, layers=state.layers)
@@ -298,24 +356,35 @@ def prefill(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor,
             state: DecodeState, embeds=None
             ) -> Tuple[torch.Tensor, DecodeState]:
     """Process a prompt after its ``embeds`` prefix, filling a fresh
-    state's caches (RWKV: its recurrent state) in place. Returns
+    state's caches (recurrent layers: their states) in place. Returns
     (last-position fp32 logits, state with 0-d ``t`` = prefix + prompt
     length)."""
+    kinds = cfg.layer_kinds()[: cfg.block_period()]
     h = _embed(params, cfg, tokens, embeds)
     l_total = h.shape[1]
     positions = torch.arange(l_total, device=h.device)
     for i in range(cfg.n_blocks()):
-        for j in range(cfg.block_period()):
+        for j, (mix, _) in enumerate(kinds):
             lp = _block(params["blocks"][j], i)
             st = _block(state.layers[j], i)
-            if cfg.rwkv:
+            if mix == "rwkv":
                 h = _rwkv_layer(lp, st, cfg, h)
                 continue
             x = apply_norm(h, lp["norm1"], cfg.norm)
-            out, (k, v) = attn_lib.gqa_forward(
-                lp["attn"], x, positions, attn_chunk=cfg.attn_chunk,
-                **_attn_kwargs(cfg))
-            attn_lib.kv_cache_write(st, k, v, 0)
+            if mix == "attn":
+                out, (k, v) = attn_lib.gqa_forward(
+                    lp["attn"], x, positions, attn_chunk=cfg.attn_chunk,
+                    **_attn_kwargs(cfg))
+                attn_lib.kv_cache_write(st, k, v, 0)
+            elif mix == "mla":
+                out, (ckv, kpe) = attn_lib.mla_forward(
+                    lp["attn"], x, positions, attn_chunk=cfg.attn_chunk,
+                    **_mla_kwargs(cfg))
+                attn_lib.mla_cache_write(st, ckv, kpe, 0)
+            else:
+                out, _ = mamba_lib.mamba_forward(
+                    lp["mamba"], x, st, return_state=True,
+                    **_mamba_kwargs(cfg))
             h, _ = _ffn(lp, cfg, h + out)
     logits = _logits(params, cfg, h[:, -1:, :])[:, 0, :]
     return logits, DecodeState(

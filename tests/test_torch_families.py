@@ -105,10 +105,15 @@ def _rel(got, want):
 
 def test_configs_registered_and_match_jax():
     """Every registered config equals the JAX package's field for field,
-    ``param_count`` included; the port's ``ASSIGNED_ARCHS`` is JAX's."""
+    ``param_count`` included; the port's ``ASSIGNED_ARCHS`` is JAX's, and
+    ``list_configs`` names what JAX's does."""
     from repro.configs import ASSIGNED_ARCHS as JAX_ARCHS
+    from repro.configs import list_configs as jlist_configs
+    from repro_torch.configs import list_configs
     assert ASSIGNED_ARCHS == JAX_ARCHS
-    for arch in NEW_ARCHS + ["qwen1.5-0.5b", "starcoder2-7b", "rwkv6-1.6b"]:
+    assert list_configs() == jlist_configs()
+    assert set(NEW_ARCHS) | set(ASSIGNED_ARCHS) == set(list_configs())
+    for arch in list_configs():
         j, t = jget_config(arch), get_config(arch)
         assert dataclasses.asdict(j) == dataclasses.asdict(t)
         assert t.param_count() == j.param_count()
@@ -151,13 +156,21 @@ def test_loss_and_grad(family):
 
 
 def test_refusals_name_their_items():
-    """MLA and Mamba stay refused, each naming its ROADMAP item."""
+    """MLA and the Mamba hybrid are ported: a minimal config of each
+    initialises and runs ``forward``. What stays refused is what neither
+    package runs, named in the message: a positional scheme outside the
+    schema's rope | sinusoidal | none."""
     from repro_torch.configs import ArchConfig
     base = dict(family="dense", n_layers=2, d_model=64, n_heads=2,
                 n_kv_heads=2, d_ff=128, vocab_size=64, dtype="float32")
     mla = ArchConfig(name="mla", mla=True, q_lora_rank=16, kv_lora_rank=16,
-                     **base)
+                     qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16, **base)
     hybrid = ArchConfig(name="hybrid", attn_period=2, attn_offset=1, **base)
-    for cfg, item in ((mla, "11.5"), (hybrid, "11.6")):
-        with pytest.raises(NotImplementedError, match=item):
-            tmodel.init_params(cfg, device="cpu")
+    tokens = torch.zeros((1, 4), dtype=torch.int64)
+    for cfg in (mla, hybrid):
+        params = tmodel.init_params(cfg, device="cpu")
+        logits, _ = tmodel.forward(params, cfg, tokens)
+        assert tuple(logits.shape) == (1, 4, 64)
+    alibi = dataclasses.replace(mla, name="alibi", pos_emb="alibi")
+    with pytest.raises(NotImplementedError, match="alibi"):
+        tmodel.init_params(alibi, device="cpu")

@@ -21,20 +21,11 @@ from repro.launch import adapters as jadapters
 from repro.launch import serve as jserve
 from repro.models import model as jmodel
 from repro_torch.launch import serve as tserve
-from repro_torch.models import attention as tattn
 from repro_torch.models import model as tmodel
-from repro_torch.models.convert import params_from_jax
+from repro_torch.models.convert import decode_state_from_jax, params_from_jax
 from test_torch_families import (B, DECODE_TOL, FWD_TOL, L, WIDE_HEADS,  # noqa: F401
                                  _configs, _one_torch_thread, _rel, _t,
                                  family)
-
-
-def _state_from_jax(jstate):
-    """A JAX decode state (stacked bf16 KV caches) as the port's, bits
-    kept."""
-    return tmodel.DecodeState(
-        t=torch.from_numpy(np.array(jstate.t, np.int32)),
-        layers=[tattn.KVCache(*(_t(x) for x in c)) for c in jstate.layers])
 
 
 @pytest.mark.parametrize("per_slot", [False, True])
@@ -60,7 +51,8 @@ def test_prefill_and_decode(family, per_slot):
         jstate = jstate._replace(t=t)
     jd, _ = jmodel.decode_step(jparams, jcfg, jnp.asarray(tokens[:, -1]),
                                jstate)
-    tstate = _state_from_jax(jstate)
+    tstate = decode_state_from_jax(jax.tree_util.tree_map(np.asarray,
+                                                          jstate), "cpu")
     with torch.inference_mode():
         td, tstate = tmodel.decode_step(tparams, tcfg,
                                         torch.from_numpy(tokens[:, -1]),

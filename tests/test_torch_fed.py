@@ -20,6 +20,7 @@ The batch is 8 rather than 2 because with 2 labelled tokens per step the
 last layer's gradients have rank 2 < r = 4, and the RSVD's remaining
 basis columns are round-off in every implementation.
 """
+import dataclasses
 import importlib.util
 from pathlib import Path
 
@@ -189,8 +190,10 @@ def _tiny_engine(**kw):
 
 def test_unported_paths_raise_naming_the_roadmap():
     """Every method builds in every round form, with the population and
-    defense settings too (ROADMAP Queue 1 item 10 is ported); what is
-    left to refuse are MLA and Mamba (items 11.5 and 11.6)."""
+    defense settings too (ROADMAP Queue 1 item 10 is ported); MLA and
+    Mamba (items 11.5 and 11.6) are ported too, so ``loss_fn`` of an MLA
+    config gives a finite loss where it was refused; ``FedEngine`` still
+    refuses MLA and Mamba models, naming item 11.9 (their rounds)."""
     from repro_torch.core.fed import METHODS
     from repro_torch.core.population import ParticipationConfig
     for method in METHODS:
@@ -209,8 +212,18 @@ def test_unported_paths_raise_naming_the_roadmap():
     cfg = ArchConfig(name="mla", family="dense", mla=True, q_lora_rank=16,
                      kv_lora_rank=16, n_layers=2, d_model=64, n_heads=2,
                      n_kv_heads=2, d_ff=128, vocab_size=64, dtype="float32")
-    with pytest.raises(NotImplementedError, match="item 11.5"):
-        tmodel.loss_fn({}, cfg, batch)
+    params = tmodel.init_params(cfg, device="cpu")
+    loss = tmodel.loss_fn(params, cfg, {k: torch.from_numpy(v[0, 0])
+                                        for k, v in batch.items()})
+    assert bool(torch.isfinite(loss))
+    hybrid = dataclasses.replace(cfg, name="hybrid", mla=False,
+                                 attn_period=2, attn_offset=1)
+    for c in (cfg, hybrid):
+        with pytest.raises(NotImplementedError, match="item 11.9"):
+            FedEngine(FedConfig(**_fed_kw("fedgalore")),
+                      loss_fn=lambda p, b, c=c: tmodel.loss_fn(p, c, b),
+                      params=tmodel.init_params(c, device="cpu"),
+                      target_fn=galore_target_fn(c))
 
 
 def test_run_rounds_is_a_loop_of_rounds():

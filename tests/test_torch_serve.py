@@ -43,7 +43,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import model as tmodel
-from repro_torch.models.convert import _to_tensor, params_from_jax
+from repro_torch.models.convert import decode_state_from_jax, params_from_jax
 from repro_torch.utils import tree
 
 ARCH = "qwen1.5-0.5b"
@@ -112,14 +112,6 @@ def test_config_matches_jax(arch):
         dataclasses.asdict(jget_config(arch))
 
 
-def _state_from_jax(jstate):
-    """A JAX decode state (stacked KV caches) as the port's, bits kept."""
-    return tmodel.DecodeState(
-        t=torch.tensor(int(jstate.t), dtype=torch.int32),
-        layers=[tattn.KVCache(*(_to_tensor(np.asarray(x), "cpu", None)
-                                for x in c)) for c in jstate.layers])
-
-
 def test_prefill_and_decode_logits(slice_):
     """Prefill logits to 1e-5. Both packages round K and V into a bf16
     cache, and an fp32 last-place difference upstream can flip an entry
@@ -145,8 +137,9 @@ def test_prefill_and_decode_logits(slice_):
             assert int(tstate.t) == 8 and tstate.t.ndim == 0
             caches = [(c.k.clone(), c.v.clone()) for c in tstate.layers]
             tl2, tstate = tmodel.decode_step(tserved, tcfg, tok, tstate)
-            tl2_same, _ = tmodel.decode_step(tserved, tcfg, tok,
-                                             _state_from_jax(jstate))
+            from_jax = decode_state_from_jax(
+                jax.tree_util.tree_map(np.asarray, jstate), "cpu")
+            tl2_same, _ = tmodel.decode_step(tserved, tcfg, tok, from_jax)
     assert tl.dtype == torch.float32 and tl.shape == (G, jcfg.vocab_size)
     assert np.max(np.abs(tl.numpy() - np.asarray(jl))) <= 1e-5
     for (tk, tv), jc in zip(caches, jstate.layers):
@@ -566,12 +559,16 @@ for name in ("repro_torch.utils.prng", "repro_torch.core.fed",
              "repro_torch.kernels.galore_adamw",
              "repro_torch.kernels.batched_eigh", "repro_torch.data.pipeline",
              "repro_torch.models.rwkv", "repro_torch.kernels.rwkv6_scan",
-             "repro_torch.configs.rwkv6_1_6b"):
+             "repro_torch.configs.rwkv6_1_6b", "repro_torch.models.mamba",
+             "repro_torch.configs.deepseek_v2_236b",
+             "repro_torch.configs.jamba_1_5_large_398b"):
     assert name in names, name
 for name, path in (("chip_smoke", "chip_smoke.py"),
                    ("quickstart_torch", "examples/quickstart_torch.py"),
                    ("population_cohorts_torch",
-                    "examples/population_cohorts_torch.py")):
+                    "examples/population_cohorts_torch.py"),
+                   ("serve_batched_torch",
+                    "examples/serve_batched_torch.py")):
     spec = importlib.util.spec_from_file_location(name, ROOT + "/" + path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(n for n in sys.modules
