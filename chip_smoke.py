@@ -67,7 +67,14 @@ weights from ``--seed``):
   ``galore_precond_step`` and ``jacobi_eigh``, round 1 through
   ``lowrank_linear`` and ``jacobi_eigh``) and one FedIT round, every
   forward's WKV recurrence through ``rwkv6_scan`` in its checkpoint mode
-  and every backward's through ``rwkv6_scan_bwd``.
+  and every backward's through ``rwkv6_scan_bwd``;
+* training deepseek-v2-236b and jamba-1.5-large-398b at their published
+  widths, the depth cut to 4 layers, at the rwkv6 rounds' traffic: two
+  FedGaLore rounds (round 0 through ``galore_precond_step``, jamba's
+  8192-row bases read from global memory, round 1 reading MLA's and
+  Mamba's projections lift-free through ``lowrank_linear``; 𝒮 through
+  ``jacobi_eigh``) and one FedIT round, the MoE routed to the plain
+  run's experts for the gated readings.
 
 Every dense prefill's attention goes through ``flash_attention`` (qwen,
 starcoder2, granite, mistral-nemo, jamba's attention layer), as do the
@@ -408,6 +415,46 @@ RWKV_TRAIN_LAUNCHES = {
         "rwkv6_scan_bwd": 24 * _FWD},
 }
 RWKV_FEDIT_LAUNCHES = {"rwkv6_scan": 24 * _FWD, "rwkv6_scan_bwd": 24 * _FWD}
+# deepseek-v2-236b and jamba-1.5-large-398b in training at their published
+# widths, the depth cut to CUT_LAYERS, at the rwkv6 rounds' traffic and lr
+# (C 4, T 2, batch 4 x 128, rank 8, RWKV_LR): two fedgalore
+# rounds and one fedit round. Their GaLore targets (galore_target_fn:
+# MLA's q_a, q_b, kv_a, kv_b and wo; Mamba's in_proj and out_proj, the
+# attention projections and the dense GLU; experts, shared experts and
+# routers frozen) as stacked (nb, m, n) leaves, stated before the first
+# run and checked against the engine's trainables. moe_train_plan derives
+# the rest: a lift-free forward reads each target once a layer through
+# lowrank_linear (seq 128 < attn_chunk 4096, so MLA reads kv_b once);
+# round 0 runs galore_precond_step once a shape bucket a client step; 𝒮
+# runs jacobi_eigh once a bucket. FedIT launches no kernel: its adapters
+# merge into dense weights, and attention under grad is plain.
+MOE_TRAIN_TARGETS = {
+    "deepseek-v2-236b": [(4, 5120, 576), (4, 512, 32768), (4, 5120, 1536),
+                         (4, 1536, 24576), (4, 16384, 5120)],
+    "jamba-1.5-large-398b": (
+        3 * [(1, 8192, 32768), (1, 16384, 8192)]
+        + 2 * [(1, 24576, 8192), (1, 8192, 24576), (1, 8192, 24576)]
+        + 2 * [(1, 8192, 1024), (1, 8192, 8192)])}
+# Their gates, set before the first run (PERF.md §2). Every gated reading
+# comes from runs whose MoE layers route to the plain run's experts
+# (RouteLog(pin=...)); the free kernel run is reported beside them with
+# its share of flipped expert choices. Gated: the per-step losses within
+# max(TRAIN_LOSS_BOUND, the embedding-ulp control's reading), the loss
+# control (round 1's first step at the initial leaves) above that; round
+# 0's D against a run with a float64 GaLore preconditioner within
+# max(TRAIN_DELTA_BOUND, the fp32 plain run's own D against it, the
+# embedding-ulp control's round-0 D against the plain run: the model's
+# own floor, which the fp32 runs reach), round 0 lost and the planted
+# fault (each bucket's basis rolled by one column into the GaLore kernel,
+# round 0) above that; round 1's 𝒮 rerun with the
+# plain versions on the kernel run's client states within
+# max(RWKV_SYNC_TOL, 𝒮's floor), the stale ṽ above it; D of both rounds
+# within max(TRAIN_DELTA_BOUND, the control's D) wherever both
+# dropped-round controls read above that gate (else it reads like a lost
+# round, ROADMAP Queue 3 x, and is reported, not gated); the fedit round,
+# which runs no kernel, within TRAIN_LOSS_BOUND and TRAIN_DELTA_BOUND of
+# its plain run (not bit for bit: the MoE's index_add combine and the
+# backward of its gather add atomically on the card).
 # rwkv6_scan_bwd against its plain version, set before the first run: bit
 # for bit (gated), since ref.rwkv6_scan_bwd_ref is written in the kernel's
 # order. Each case also reports its relative reading per output beside
@@ -580,7 +627,8 @@ def phase_build():
     and rwkv6_scan_bwd must hold no fused multiply-add (their order is the
     plain versions'); the
     GaLore kernel's rank-8 instantiations (both sides, fp32 and bf16 g)
-    must not spill."""
+    must not spill, whether they stage the basis or read it from global
+    memory."""
     from repro_torch.kernels import _build
     for name, seconds in _build.build_all().items():
         row = {"phase": "build", "kernel": name, "seconds": seconds,
@@ -592,7 +640,7 @@ def phase_build():
               f"{name}: {row.get('ffma')} FFMA in the SASS")
         if name == "galore_adamw":      # the rank-8 kernels the path runs
             path = [f for f in row["ptxas"] if "<Li8E" in f["function"]]
-            check(len(path) == 4 and all(
+            check(len(path) == 8 and all(
                 f.get("spill_stores") == 0 == f.get("spill_loads")
                 for f in path), f"galore_adamw: the rank-8 kernels spill "
                 f"or are missing: {path}")
@@ -2028,18 +2076,18 @@ def _lowrank_key(x, w, basis, rt, scale, **kw):
 
 
 def _precond_key(g, basis, m, v, count, **kw):
-    """(g, basis shapes, project_back, g's dtype, the route plan() gives)
-    of one galore_precond_step call as ``ops`` receives it."""
+    """(g, basis shapes, project_back, g's dtype, the route plan() gives,
+    where it reads the basis) of one galore_precond_step call as ``ops``
+    receives it."""
     from repro_torch.kernels import galore_adamw as ga
     pb = bool(kw.get("project_back", True))
     side = kw.get("side") or ga.infer_side(g.shape, basis.shape, m.shape)
     mm, nn = g.shape[-2:]
-    route = ga.plan(side, mm, nn, basis.shape[-1], g.dtype,
-                    ga.PRECOND_U if pb else ga.PRECOND_UT,
-                    batch=g.numel() // (mm * nn),
-                    aligned=g.data_ptr() % 16 == 0).route
+    p = ga.plan(side, mm, nn, basis.shape[-1], g.dtype,
+                ga.PRECOND_U if pb else ga.PRECOND_UT,
+                batch=g.numel() // (mm * nn), aligned=g.data_ptr() % 16 == 0)
     return (tuple(g.shape), tuple(basis.shape), pb,
-            str(g.dtype).split(".")[1], route)
+            str(g.dtype).split(".")[1], p.route, p.basis)
 
 
 def _eigh_key(a, **kw):
@@ -2139,8 +2187,8 @@ def galore_kernel_checks(seed, out):
     # and odd shapes on the scalar-load form (N % 8 != 0 with bf16, N % 4
     # != 0 with fp32, both sides), M = 1, N = 1, and ranks 1, 16 and 64.
     # Each launch takes plan()'s route.
-    # rwkv6-1.6b's buckets run in round 0's mode only (no eager round of
-    # it runs on the card).
+    # rwkv6-1.6b's, deepseek-v2-236b's and jamba-1.5-large-398b's buckets
+    # run in round 0's mode only (no eager round of them runs on the card).
     path = [((4, 24), 1024, 1024), ((2, 24), 1024, 2816),
             ((1, 24), 2816, 1024)] + [
         ((k, NLU_LAYERS), mm, nn) for (mm, nn), k in NLU_SHAPES.items()]
@@ -2149,6 +2197,8 @@ def galore_kernel_checks(seed, out):
              for lead, mm, nn in path] + \
             [(lead, mm, nn, TRAIN_R, ga.PRECOND_UT)
              for lead, mm, nn in RWKV_BUCKETS] + \
+            [(lead, mm, nn, TRAIN_R, ga.PRECOND_UT) for a in MOE_TRAIN_TARGETS
+             for lead, mm, nn in moe_train_plan(a)["buckets"]] + \
             [((1, 2), 1024, 2816, TRAIN_R, ga.PRECOND_U),
              ((3,), 37, 20, TRAIN_R, ga.PRECOND_U),
              ((3,), 37, 20, TRAIN_R, ga.PRECOND_UT),
@@ -2211,12 +2261,16 @@ def _precond_f64(g, c, mode, c1, c2):
 @contextlib.contextmanager
 def _exact_precond():
     """Every kernel's plain version, the GaLore preconditioner's computed
-    in float64 and rounded once to fp32."""
+    in float64 and rounded once to fp32, one block of the stack at a time
+    (the blocks are independent; a whole float64 copy of a width-8192
+    model's bucket would not fit beside its round)."""
     from repro_torch.kernels import ops
     orig = ops.galore_precond_ref
 
-    def rounded(*args, **kw):
-        return tuple(x.float() for x in _precond_ref_f64(*args, **kw))
+    def rounded(g, basis, m, v, **kw):
+        outs = [tuple(x.float() for x in _precond_ref_f64(
+            g[i], basis[i], m[i], v[i], **kw)) for i in range(g.shape[0])]
+        return tuple(torch.stack(xs) for xs in zip(*outs))
 
     ops.galore_precond_ref = rounded
     try:
@@ -2316,7 +2370,8 @@ def phase_train_kernel_checks(gen, seed):
     # lowrank_linear: the round-1 forward (B, L) = (4, 128), bf16; ragged
     # row tails and fp32 beside it; then the routes' edges (rows 1, 8, 16,
     # 17, TC_MIN_ROWS - 1, TC_MIN_ROWS, + 1, 100, 128, 1,024; n = 520, m =
-    # 1,032; a split GEMM with a short last K chunk) and a misaligned x.
+    # 1,032; a split GEMM with a short last K chunk) and a misaligned x;
+    # the cut deepseek-v2-236b's and jamba-1.5-large-398b's targets.
     lows = [((m, n), lead, dtype, False) for (m, n) in TRAIN_SHAPES
             for lead, dtype in (((TRAIN_B, TRAIN_L), torch.bfloat16),
                                 ((TRAIN_B, 100), torch.bfloat16),
@@ -2328,6 +2383,9 @@ def phase_train_kernel_checks(gen, seed):
              for lead in ((NLU_B, NLU_L), (VIT_B, VIT_L))]
     lows += [((m, n), (TRAIN_B, TRAIN_L), torch.bfloat16, False)
              for (m, n) in RWKV_TRAIN_SHAPES]
+    lows += [((m, n), (TRAIN_B, TRAIN_L), torch.bfloat16, False)
+             for a in MOE_TRAIN_TARGETS
+             for (m, n) in moe_train_plan(a)["reads"]]
     lows += [((4104, 136), (2, 100), torch.bfloat16, False),
              ((1024, 2816), (TRAIN_B, TRAIN_L), torch.bfloat16, True),
              ((1024, 1024), (2, 4), torch.bfloat16, True)]
@@ -2365,7 +2423,8 @@ def phase_train_kernel_checks(gen, seed):
     galore_kernel_checks(seed, out)
 
     # jacobi_eigh: 𝒮's Phase-1 Grams (bucket leaves, 24, 4 clients, 8, 8)
-    # and (24, 4, 8, 8) for the singleton bucket; n = 1..64 in batches of
+    # and (24, 4, 8, 8) for the singleton bucket (and the cut MoE models'
+    # buckets, moe_train_plan); n = 1..64 in batches of
     # 7 (a partial block on the warp route); the route threshold +- 1 at
     # batch 1 and at 21 (a whole block and a partial one); n = 7, 8 at the
     # pair layout's last batch and one past it (the column layout); rank
@@ -2375,7 +2434,8 @@ def phase_train_kernel_checks(gen, seed):
     wmax, pmax = be.WARP_MAX_N, be.PAIR_MAX_BATCH
     shapes = [(4, 24, CLIENTS), (24, CLIENTS), (2, 24, CLIENTS),
               (4, NLU_LAYERS, CLIENTS), (NLU_LAYERS, CLIENTS),
-              (6, 24, CLIENTS)]
+              (6, 24, CLIENTS)] + sorted(
+        {g for a in MOE_TRAIN_TARGETS for g in moe_train_plan(a)["grams"]})
     cases = [(lead, TRAIN_R) for lead in shapes] + \
         [((7,), n) for n in range(1, 65)] + \
         [(lead, n) for n in (wmax - 1, wmax, wmax + 1)
@@ -2533,7 +2593,7 @@ def phase_train(seed, card, checked):
             check(got == EXPECTED_GALORE_ROUTES,
                   f"round 0: galore_precond_step routes {got}, expected "
                   f"{EXPECTED_GALORE_ROUTES}")
-            planned = {key[-1] for key in seen["galore_precond_step"]}
+            planned = {key[4] for key in seen["galore_precond_step"]}
             check({key[2] for key in seen["galore_precond_step"]}
                   == {False}, "the training path ran the preconditioner "
                   "with the update projected back")
@@ -2810,10 +2870,12 @@ def phase_sampling(cfg, served, seed, card):
 def _change_rel(got, want, init):
     """How far the change ``got - init`` is from ``want - init``: the
     Frobenius norm of the difference over that of ``want - init``, and
-    the same with max |.| in place of the norm, over all leaves."""
+    the same with max |.| in place of the norm, over all leaves (a leaf
+    on the host moves to ``init``'s device for its term)."""
     num = den = 0.0
     max_num = max_den = 0.0
     for g, w, i in zip(got, want, init):
+        g, w = g.to(i.device), w.to(i.device)
         d = g.float() - w.float()
         dw = w.float() - i.float()
         num += float(torch.sum(d * d))
@@ -3204,7 +3266,13 @@ class RoundLog:
     after), and the global target leaves before the first round and after
     each.
     ``launches`` / ``routes`` total the whole run from entry: the rounds'
-    counts and those read between and after them (evaluations)."""
+    counts and those read between and after them (evaluations). With
+    ``host`` the snapshots after each round are copied to the host, and
+    the one before the first round holds the leaves themselves (for runs
+    from weights no engine writes in place)."""
+
+    def __init__(self, host=False):
+        self.host = host
 
     def __enter__(self):
         from repro_torch.core.fed import FedEngine
@@ -3218,8 +3286,12 @@ class RoundLog:
         log = self
 
         def snap(engine):
-            return [x.detach().clone()
-                    for x in tree.tree_leaves(engine.global_trainable)]
+            leaves = tree.tree_leaves(engine.global_trainable)
+            if not log.host:
+                return [x.detach().clone() for x in leaves]
+            if not log.snaps:
+                return [x.detach() for x in leaves]
+            return [x.detach().to("cpu") for x in leaves]
 
         def run_round(engine, *args, **kw):
             if not log.snaps:
@@ -3531,12 +3603,13 @@ def _rwkv_rounds(*args, **kw):
     return rl
 
 
-def _check_rwkv_path(phase, rl, seen, checked, per_round):
-    """The rwkv rounds went through their kernels: every launched shape
-    checked, each round's launches as ``per_round`` states (by round,
-    the last entry for later rounds; every other kernel 0), round 0's
-    GaLore buckets on their routes, 𝒮 on the warp route, the low-rank
-    applies on the tensor cores."""
+def _check_rwkv_path(phase, rl, seen, checked, per_round,
+                     galore_routes=EXPECTED_GALORE_ROUTES):
+    """The rwkv rounds (or another model's) went through their kernels:
+    every launched shape checked, each round's launches as ``per_round``
+    states (by round, the last entry for later rounds; every other kernel
+    0), round 0's GaLore buckets on ``galore_routes``, 𝒮 on the warp
+    route, the low-rank applies on the tensor cores."""
     for name, keys in seen.items():
         check(keys <= checked.get(name, set()), f"{phase}: the path "
               f"launched {name} at shapes the checks did not cover: "
@@ -3552,9 +3625,9 @@ def _check_rwkv_path(phase, rl, seen, checked, per_round):
         if want.get("galore_precond_step"):
             got = {k: v for k, v in r["routes"]["galore_precond_step"]
                    .items() if v}
-            check(got == EXPECTED_GALORE_ROUTES, f"{phase} round "
+            check(got == galore_routes, f"{phase} round "
                   f"{r['round']}: galore_precond_step routes {got}, "
-                  f"expected {EXPECTED_GALORE_ROUTES}")
+                  f"expected {galore_routes}")
         check(r["routes"]["jacobi_eigh"]["warp"]
               == r["launches"]["jacobi_eigh"],
               f"{phase} round {r['round']}: an 𝒮 bucket left the warp "
@@ -3781,6 +3854,310 @@ def phase_train_rwkv(seed, card, checked):
     return launches, routes
 
 
+def moe_train_plan(arch):
+    """What MOE_TRAIN_TARGETS[arch] gives as the port buckets it: ``reads``
+    {(m, n): lowrank_linear launches a forward}; ``buckets`` [(lead, m,
+    n)], the GaLore stacks (leaves of one shape stacked on a new leading
+    axis); ``grams``, the Gram stacks 𝒮 solves (a singleton bucket's
+    without that axis); ``launches`` of round 0 and of later rounds; and
+    ``routes``, round 0's galore_precond_step launches by the route
+    ``plan`` gives an fp32 g (the clip leaves it so)."""
+    from repro_torch.kernels import galore_adamw as ga
+    reads, leaves = {}, {}
+    for nb, m, n in MOE_TRAIN_TARGETS[arch]:
+        reads[(m, n)] = reads.get((m, n), 0) + nb
+        leaves[(nb, m, n)] = leaves.get((nb, m, n), 0) + 1
+    buckets = [((k, nb), m, n) for (nb, m, n), k in sorted(leaves.items())]
+    grams = sorted({(lead if lead[0] > 1 else lead[1:]) + (CLIENTS,)
+                    for lead, _, _ in buckets})
+    routes = {}
+    for lead, m, n in buckets:
+        rt = ga.plan("right" if m >= n else "left", m, n, TRAIN_R,
+                     torch.float32, ga.PRECOND_UT,
+                     batch=int(np.prod(lead))).route
+        routes[rt] = routes.get(rt, 0) + _FWD
+    launches = [{"galore_precond_step": len(buckets) * _FWD,
+                 "jacobi_eigh": len(buckets), "lowrank_linear": 0},
+                {"galore_precond_step": 0, "jacobi_eigh": len(buckets),
+                 "lowrank_linear": sum(reads.values()) * _FWD}]
+    return dict(reads=reads, buckets=buckets, grams=grams,
+                launches=launches, routes=routes)
+
+
+@contextlib.contextmanager
+def _rolled_basis():
+    """The training phases' planted fault: each GaLore bucket's basis
+    rolled by one column on its way into the kernel, so ũ and the moments
+    come back in coordinates their basis does not have."""
+    from repro_torch.kernels import ops
+    orig = ops.galore_precond_step
+
+    def rolled(g, basis, *args, **kw):
+        return orig(g, torch.roll(basis, 1, dims=-1), *args, **kw)
+
+    ops.galore_precond_step = rolled
+    try:
+        yield
+    finally:
+        ops.galore_precond_step = orig
+
+
+def _moe_run(cfg, params, seed, *, rounds=2, method="fedgalore",
+             plain=False, pin=None, exact=False, fault=False, bump=False):
+    """``rounds`` rounds of ``method`` on the cut ``cfg`` from ``params``
+    (every run starts from the same tensors: no engine writes a weight in
+    place) at phase_train's traffic, logged with host snapshots:
+    through the kernels, or with every plain version (``plain``), with the
+    GaLore preconditioner in float64 (``exact``), with the planted fault
+    (``fault``) or with 1 % of the embedding table one bf16 ulp up
+    (``bump``); every MoE layer routed to ``pin`` (another run's picks) or
+    freely. Returns the RoundLog (``sync_s`` and ``agg_s`` per round), the
+    expert picks, the shapes each kernel saw, 𝒮's output after each
+    round, the peak GiB and the engine."""
+    from types import SimpleNamespace
+    from repro_torch.core.fed import FedConfig, FedEngine
+    from repro_torch.data import FederatedBatcher, seq_classification
+    from repro_torch.launch.steps import galore_target_fn
+    from repro_torch.models import model as model_lib
+    p = dict(params)
+    if bump:
+        p["embed"] = dict(p["embed"],
+                          w=_bump_embed(p["embed"]["w"], seed + 5))
+    task = seq_classification(n_examples=256, n_classes=4, seq_len=TRAIN_L,
+                              vocab=cfg.vocab_size, seed=seed)
+    batcher = FederatedBatcher(task, n_clients=CLIENTS, batch_size=TRAIN_B,
+                               alpha=0.5, seed=seed)
+    engine = FedEngine(
+        FedConfig(method=method, rank=TRAIN_R, lr=RWKV_LR,
+                  local_steps=LOCAL_STEPS, seed=seed, lora_scale=LORA_SCALE),
+        loss_fn=lambda q, b: model_lib.loss_fn(q, cfg, b), params=p,
+        target_fn=galore_target_fn(cfg))
+    del p
+    sync_s = _time_method(engine, "_sync_states")
+    agg_s = _time_method(engine, "_aggregate_factored")
+    synced = []
+    torch.cuda.reset_peak_memory_stats()
+    with (_exact_precond() if exact else _plain_or_kernels(plain)), \
+            (_rolled_basis() if fault else contextlib.nullcontext()), \
+            RouteLog(pin) as route, RoundLog(host=True) as rl, \
+            ShapeLog(TRAIN_LOG) as sl:
+        for _ in range(rounds):
+            engine.run_round(batcher.round_batches(LOCAL_STEPS))
+            rl.rounds[-1].update(sync_s=sum(sync_s), agg_s=sum(agg_s))
+            sync_s.clear()
+            agg_s.clear()
+            synced.append(engine.synced_v)
+        torch.cuda.synchronize()
+    return SimpleNamespace(
+        rl=rl, picks=route.picks, seen=sl.seen, synced=synced,
+        peak=torch.cuda.max_memory_allocated() / 2 ** 30, engine=engine)
+
+
+def _freed(run):
+    """``run`` without its engine, the card's cache emptied."""
+    run.engine = None
+    torch.cuda.empty_cache()
+    return run
+
+
+def _moe_rounds_rows(phase, cfg, card, run, kind):
+    for r in run.rl.rounds:
+        emit({"phase": phase, "run": kind, "arch": cfg.name, "card": card,
+              "round": r["round"], "clients": CLIENTS,
+              "local_steps": LOCAL_STEPS, "batch": TRAIN_B,
+              "seq": TRAIN_L, "rank": TRAIN_R, "lr": RWKV_LR,
+              "round_s": r["seconds"], "agg_s": r.get("agg_s"),
+              "sync_s": r.get("sync_s"), "launches": r["launches"],
+              "routes": r["routes"], "losses": r["losses"].tolist(),
+              "peak_gib": run.peak})
+
+
+def phase_train_moe(arch, seed, card, checked):
+    """``arch`` (deepseek-v2-236b or jamba-1.5-large-398b) in training at
+    its published widths, the depth cut (CUT_LAYERS): two fedgalore rounds
+    and one fedit round through FedEngine.run_round, counted per round.
+    Runs, all from one set of weights: the plain run (every kernel's plain
+    version, free routing: its expert picks pin the gated runs); round 0
+    with the GaLore preconditioner in float64; the kernel run, pinned
+    (gated); the kernel run, free (the main path as users run it: its
+    launches are the kernels' counts, its readings reported with the
+    share of flipped expert choices); the embedding-ulp control (plain,
+    pinned); round 0 with the planted fault (pinned); fedit plain and
+    through the kernels (pinned). Gates as stated with MOE_TRAIN_TARGETS.
+    Returns the free kernel run's and the fedit kernel run's launches and
+    routes."""
+    from repro_torch.models import model as model_lib
+    phase = "train_" + arch.split("-")[0]
+    plan = moe_train_plan(arch)
+    t_phase = time.perf_counter()
+    # the autograd thread's cuBLAS handle, made while the card has room
+    # (jamba's round 0 leaves too little for cublasCreate)
+    x = torch.ones(8, 8, device="cuda", requires_grad=True)
+    torch.autograd.grad((x @ x).sum(), x)
+    cfg = _full_config(arch)
+    params = model_lib.init_params(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_phase
+    emit({"phase": phase, "arch": cfg.name, "card": card,
+          "n_layers": cfg.n_layers, "cut_from": FULL_LAYERS[arch],
+          "params_b": cfg.param_count() / 1e9, "setup_s": setup_s,
+          "resident_gib": torch.cuda.memory_allocated() / 2 ** 30,
+          "targets": MOE_TRAIN_TARGETS[arch],
+          "plan": {"reads_per_forward": {f"{m}x{n}": k for (m, n), k
+                                         in plan["reads"].items()},
+                   "buckets": plan["buckets"], "grams": plan["grams"],
+                   "launches": plan["launches"],
+                   "galore_routes": plan["routes"]}})
+
+    plain = _freed(_moe_run(cfg, params, seed, plain=True))
+    init = plain.rl.snaps[0]
+    check(sorted(tuple(x.shape) for x in init)
+          == sorted(MOE_TRAIN_TARGETS[arch]), f"{phase}: the engine trains "
+          f"{sorted(tuple(x.shape) for x in init)}, not the stated targets")
+    for r in plain.rl.rounds:
+        check(sum(r["launches"].values()) == 0,
+              f"{phase}: the plain run launched kernels: {r['launches']}")
+    pin = plain.picks
+    _moe_rounds_rows(phase, cfg, card, plain, "plain")
+    exact = _freed(_moe_run(cfg, params, seed, rounds=1, exact=True,
+                            pin=pin))
+
+    def run_checked(kind, per_round=plan["launches"], **kw):
+        run = _moe_run(cfg, params, seed, **kw)
+        _check_rwkv_path(f"{phase} {kind}", run.rl, run.seen, checked,
+                         per_round, galore_routes=plan["routes"])
+        _moe_rounds_rows(phase, cfg, card, run, kind)
+        return run
+
+    kern = run_checked("kernel_pinned", pin=pin)
+    check(all(torch.equal(x, y) for x, y in zip(kern.rl.snaps[0], init)),
+          f"{phase}: the kernel and plain runs did not start from the same "
+          "weights")
+    sync_plain = _sync_again(kern.engine)
+    sync_floor = _tree_rel(_sync_again(kern.engine, seed + 11), sync_plain)
+    first = {k: _first_step_losses(kern.engine,
+                                   [x.to(init[0].device)
+                                    for x in kern.rl.snaps[i]],
+                                   kern.rl.batches[1])
+             for k, i in (("round0", 1), ("init", 0))}
+    _freed(kern)
+    free = _freed(run_checked("kernel_free"))
+    ulp = _freed(_moe_run(cfg, params, seed, plain=True, pin=pin,
+                          bump=True))
+    fault = _freed(_moe_run(cfg, params, seed, rounds=1, pin=pin,
+                            fault=True))
+
+    a, k = plain.rl, kern.rl
+    want, start = a.snaps[-1], k.snaps[1]
+    plain1 = a.rounds[1]["losses"][:, 0]
+    no_round0 = (f.to(i.device).float() - (r0.to(i.device).float()
+                                           - i.float())
+                 for f, r0, i in zip(k.snaps[-1], start, init))
+    got = {
+        "loss": _loss_diff(k, a),
+        "delta": _change_rel(k.snaps[-1], want, init)[0],
+        "delta_round0": _change_rel(start, a.snaps[1], init)[0],
+        "delta_round0_vs_f64": _change_rel(start, exact.rl.snaps[1],
+                                           init)[0],
+        "sync_round1": _tree_rel(kern.synced[1], sync_plain),
+        "sync_round1_floor": sync_floor,
+        "loss_controls": {c: (first[c] - plain1).abs().max().item()
+                          for c in ("round0", "init")},
+        "controls": {
+            "embed_ulp": {"loss": _loss_diff(ulp.rl, a),
+                          "delta": _change_rel(ulp.rl.snaps[-1], want,
+                                               init)[0],
+                          "delta_round0": _change_rel(
+                              ulp.rl.snaps[1], a.snaps[1], init)[0]},
+            "last_round_dropped": _change_rel(start, want, init)[0],
+            "round0_dropped": _change_rel(no_round0, want, init)[0],
+            "round0_lost": _change_rel(init, exact.rl.snaps[1], init)[0],
+            "plain_vs_f64_round0": _change_rel(a.snaps[1],
+                                               exact.rl.snaps[1], init)[0],
+            "sync_round1_lost": _tree_rel(kern.synced[0], sync_plain),
+            "fault_round0_vs_f64": _change_rel(
+                fault.rl.snaps[1], exact.rl.snaps[1], init)[0],
+            "fault_loss_round0": _loss_diff(fault.rl, a)},
+        "free": {"loss": _loss_diff(free.rl, a),
+                 "delta": _change_rel(free.rl.snaps[-1], want, init)[0],
+                 "delta_round0": _change_rel(free.rl.snaps[1], a.snaps[1],
+                                             init)[0],
+                 "routing_flip_share": routing_flip_share(free.picks, pin)},
+        "pinned_own_flip_share": routing_flip_share(kern.picks, pin),
+        "largest_step_drop": max(
+            (r["losses"][:, 0] - r["losses"][:, -1]).max().item()
+            for r in k.rounds),
+        "peak_gib": {"plain": plain.peak, "f64": exact.peak,
+                     "kernel_pinned": kern.peak, "kernel_free": free.peak,
+                     "embed_ulp": ulp.peak, "fault": fault.peak}}
+    ctl = got["controls"]
+    loss_gate = max(TRAIN_LOSS_BOUND, ctl["embed_ulp"]["loss"])
+    d0_gate = max(TRAIN_DELTA_BOUND, ctl["plain_vs_f64_round0"],
+                  ctl["embed_ulp"]["delta_round0"])
+    sync_gate = max(RWKV_SYNC_TOL, sync_floor)
+    d_gate = max(TRAIN_DELTA_BOUND, ctl["embed_ulp"]["delta"])
+    d_gated = min(ctl["last_round_dropped"], ctl["round0_dropped"]) > d_gate
+    gated = ["loss", "loss_control", "delta_round0_vs_f64", "round0_lost",
+             "fault_round0_vs_f64", "sync_round1", "sync_round1_lost"]
+    emit({"phase": phase + "_parity", "arch": cfg.name, "card": card, **got,
+          "loss_gate": loss_gate, "delta_round0_gate": d0_gate,
+          "sync_gate": sync_gate, "delta_gate": d_gate,
+          "delta_gated": d_gated,
+          "gated": gated + (["delta"] if d_gated else [])})
+    check(got["loss"] <= loss_gate, f"{phase}: losses differ by "
+          f"{got['loss']} > {loss_gate}")
+    check(got["loss_controls"]["init"] > loss_gate, f"{phase}: round 1's "
+          f"losses with round 0's update lost differ by "
+          f"{got['loss_controls']['init']}, not above {loss_gate}")
+    check(got["delta_round0_vs_f64"] <= d0_gate, f"{phase}: round 0's "
+          f"change of the leaves is {got['delta_round0_vs_f64']} from the "
+          f"float64 run's > {d0_gate}")
+    check(ctl["round0_lost"] > d0_gate and ctl["fault_round0_vs_f64"]
+          > d0_gate, f"{phase}: round 0 lost ({ctl['round0_lost']}) or the "
+          f"planted fault ({ctl['fault_round0_vs_f64']}) reads under "
+          f"{d0_gate}")
+    check(got["sync_round1"] <= sync_gate, f"{phase}: round 1's 𝒮 is "
+          f"{got['sync_round1']} from its plain version > {sync_gate}")
+    check(ctl["sync_round1_lost"] > sync_gate, f"{phase}: the stale ṽ "
+          f"reads {ctl['sync_round1_lost']}, not above {sync_gate}")
+    check(not d_gated or got["delta"] <= d_gate, f"{phase}: the rounds' "
+          f"change of the leaves differs by {got['delta']} > {d_gate}")
+    launches, routes = free.rl.launches, free.rl.routes
+    del plain, exact, kern, ulp, fault, free, a, k, want, start, got
+    torch.cuda.empty_cache()
+
+    fplain = _freed(_moe_run(cfg, params, seed, rounds=1,
+                             method="fedit", plain=True))
+    fkern = run_checked("fedit_kernel", per_round=[{}], rounds=1,
+                        method="fedit", pin=fplain.picks)
+    check(all(torch.equal(x, y) for x, y in
+              zip(fkern.rl.snaps[0], fplain.rl.snaps[0])),
+          f"{phase} fedit: the runs did not start from the same adapters")
+    _freed(fkern)
+    fedit = {"loss": _loss_diff(fkern.rl, fplain.rl),
+             "delta": _change_rel(fkern.rl.snaps[-1], fplain.rl.snaps[-1],
+                                  fplain.rl.snaps[0])[0],
+             "bit_identical": all(torch.equal(x, y) for x, y in zip(
+                 fkern.rl.snaps[-1], fplain.rl.snaps[-1])),
+             "peak_gib": fkern.peak}
+    emit({"phase": phase + "_fedit_parity", "arch": cfg.name, **fedit,
+          "loss_bound": TRAIN_LOSS_BOUND, "delta_bound": TRAIN_DELTA_BOUND,
+          "plain_round_s": fplain.rl.rounds[0]["seconds"]})
+    check(fedit["loss"] <= TRAIN_LOSS_BOUND and fedit["delta"]
+          <= TRAIN_DELTA_BOUND, f"{phase} fedit: losses {fedit['loss']}, "
+          f"D {fedit['delta']} over their bounds")
+    for name in launches:
+        launches[name] += fkern.rl.launches[name]
+        for rt, n in fkern.rl.routes.get(name, {}).items():
+            routes[name][rt] = routes[name].get(rt, 0) + n
+    del params, fplain, fkern
+    torch.cuda.empty_cache()
+    emit({"phase": phase, "arch": cfg.name, "card": card,
+          "phase_s": time.perf_counter() - t_phase,
+          "launches": launches, "routes": routes})
+    return launches, routes
+
+
 def _bound(nbytes, flops_by_peak):
     bytes_s = nbytes / PEAK_BYTES
     ops_s = sum(f / p for f, p in flops_by_peak)
@@ -3854,46 +4231,13 @@ def galore_times(gen, card):
     # PRECOND_UT (round 0 of the factored round) and PRECOND_U (the
     # dense-client round's step, the eager oracle), fp32 g (the path: the
     # clip leaves the gradients in fp32) and bf16 g (an unclipped step).
-    # Bound: g read in its own type, the basis, m and v read, m' and v'
-    # written, and ũ (PRECOND_UT) or u, fp32 M x N (PRECOND_U), written;
-    # operations: the projection, and the lift in PRECOND_U.
     for mode, (lead, mm, nn), dtype in itertools.product(
             (ga.PRECOND_UT, ga.PRECOND_U),
             (((4, 24), 1024, 1024), ((2, 24), 1024, 2816),
              ((1, 24), 2816, 1024)), (torch.float32, torch.bfloat16)):
-        back = mode == ga.PRECOND_U
-        sets = [_precond_case(gen, lead, mm, nn, dtype=dtype)
-                for _ in range(2)]
-        c = sets[0]
-        blocks = int(np.prod(lead))
-        nbytes = (c["g"].numel() * c["g"].element_size()
-                  + 4 * (c["basis"].numel() + (4 if back else 5)
-                         * c["m"].numel())
-                  + (4 * c["g"].numel() if back else 0))
-        b_ms, b_by = _bound(nbytes, [((4.0 if back else 2.0) * blocks * mm
-                                      * nn * TRAIN_R, PEAK_FP32)])
-        p = ga.plan(c["side"], mm, nn, TRAIN_R, dtype, mode, batch=blocks)
-        row = {"phase": "train_times", "kernel": "galore_precond_step",
-               "card": card, "g": list(c["g"].shape),
-               "g_dtype": str(dtype).split(".")[1],
-               "on_path": dtype == torch.float32,
-               "path": "dense-client round" if back else "round 0",
-               "project_back": back, "route": p.route, "grid": list(p.grid),
-               "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
-               "library": "no single call"}
-        _timed(row, {
-            "ms": lambda c, back=back: ga.galore_precond_step(
-                c["g"], c["basis"], c["m"], c["v"], 3, side=c["side"],
-                project_back=back),
-            "plain_ms": lambda c, back=back: ref.galore_precond_ref(
-                c["g"], c["basis"], c["m"], c["v"], c1=c1, c2=c2,
-                side=c["side"], project_back=back),
-            "library_ms": None}, sets)
-        row["device_gb_s"] = nbytes / row["device_ms"] / 1e6
-        row["of_bound"] = b_ms / row["device_ms"]
-        rows.append(row)
-        emit(row)
-        del sets
+        rows.append(_precond_time_row(gen, card, mode, lead, mm, nn, dtype,
+                                      on_path=dtype == torch.float32))
+        emit(rows[-1])
     for dtype in (torch.float32, torch.bfloat16):
         sets = [_precond_case(gen, (24,), 2816, 1024, dtype=dtype)
                 for _ in range(2)]
@@ -3933,44 +4277,165 @@ def galore_times(gen, card):
     return rows
 
 
+def _lowrank_time_row(gen, card, m, n, lead, **extra):
+    """One phase_train_times row of lowrank_linear at x (lead + (m,)) bf16
+    on an (m, n) bf16 weight, rank TRAIN_R: the kernel, its plain version
+    and torch.matmul's base product, against the bound."""
+    from repro_torch.kernels import lowrank_linear as ll
+    from repro_torch.kernels import ref
+    rows_ = int(np.prod(lead))
+    per = 2 * (m * n + rows_ * (m + n))
+    sets = [_lowrank_case(gen, lead, m, n, torch.bfloat16)
+            for _ in range(max(2, -(-150_000_000 // per)))]
+    c = sets[0]
+    b_ms, b_by = _bound(
+        2 * (c["x"].numel() + c["w"].numel() + rows_ * n)
+        + 4 * (c["basis"].numel() + c["rt"].numel()),
+        [(2.0 * rows_ * m * n, PEAK_BF16),
+         (2.0 * rows_ * TRAIN_R * (m + n), PEAK_FP32)])
+    before = dict(ll.lowrank_linear.routes)
+    ll.lowrank_linear(c["x"], c["w"], c["basis"], c["rt"], c["scale"],
+                      side=c["side"])
+    row = {"phase": "train_times", "kernel": "lowrank_linear",
+           "card": card, "x": list(lead) + [m], "w": [m, n],
+           "route": _route_taken(ll.lowrank_linear, before), **extra,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library": "torch.matmul(x, W), base product only"}
+    return _timed(row, {
+        "ms": lambda c: ll.lowrank_linear(c["x"], c["w"], c["basis"],
+                                          c["rt"], c["scale"],
+                                          side=c["side"]),
+        "plain_ms": lambda c: ref.lowrank_linear_ref(
+            c["x"], c["w"], c["basis"], c["rt"], c["scale"],
+            side=c["side"]),
+        "library_ms": lambda c: torch.matmul(c["x"], c["w"])}, sets)
+
+
+def _precond_time_row(gen, card, mode, lead, mm, nn, dtype, **extra):
+    """One phase_train_times row of galore_precond_step in ``mode`` on a
+    (lead, mm, nn) bucket with g in ``dtype``, against the bound: g read
+    in its own type, the basis, m and v read, m' and v' written, and ũ
+    (PRECOND_UT) or u, fp32 M x N (PRECOND_U), written; operations: the
+    projection, and the lift in PRECOND_U."""
+    from repro_torch.kernels import galore_adamw as ga
+    from repro_torch.kernels import ref
+    c1, c2 = ga.bias_corrections(3, 0.9, 0.999)
+    back = mode == ga.PRECOND_U
+    sets = [_precond_case(gen, lead, mm, nn, dtype=dtype) for _ in range(2)]
+    c = sets[0]
+    blocks = int(np.prod(lead))
+    nbytes = (c["g"].numel() * c["g"].element_size()
+              + 4 * (c["basis"].numel() + (4 if back else 5)
+                     * c["m"].numel())
+              + (4 * c["g"].numel() if back else 0))
+    b_ms, b_by = _bound(nbytes, [((4.0 if back else 2.0) * blocks * mm
+                                  * nn * TRAIN_R, PEAK_FP32)])
+    p = ga.plan(c["side"], mm, nn, TRAIN_R, dtype, mode, batch=blocks)
+    row = {"phase": "train_times", "kernel": "galore_precond_step",
+           "card": card, "g": list(c["g"].shape),
+           "g_dtype": str(dtype).split(".")[1], **extra,
+           "path": "dense-client round" if back else "round 0",
+           "project_back": back, "route": p.route, "grid": list(p.grid),
+           "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+           "library": "no single call"}
+    _timed(row, {
+        "ms": lambda c: ga.galore_precond_step(
+            c["g"], c["basis"], c["m"], c["v"], 3, side=c["side"],
+            project_back=back),
+        "plain_ms": lambda c: ref.galore_precond_ref(
+            c["g"], c["basis"], c["m"], c["v"], c1=c1, c2=c2,
+            side=c["side"], project_back=back),
+        "library_ms": None}, sets)
+    row["device_gb_s"] = nbytes / row["device_ms"] / 1e6
+    row["of_bound"] = b_ms / row["device_ms"]
+    return row
+
+
+def mamba_scan_grad_bound(b, l, di, ds):
+    """(ms, 'bytes'|'operations') of one Mamba layer's scan forward and
+    backward: mamba_scan_bound's bytes, plus ∂y (fp32) read and the
+    gradients of x (bf16), Δ (fp32), B and C (fp32) written once; three
+    times its operations (the backward forms two products for each of
+    the forward's)."""
+    nbytes = (b * l * di * (2 + 4) + 2 * b * l * ds * 4 + di * ds * 4
+              + b * di * ds * 4 + b * l * di * 4 + b * di * ds * 4
+              + b * l * di * 4 + b * l * di * (2 + 4) + 2 * b * l * ds * 4)
+    return _bound(nbytes, [(3 * (7.0 * b * l * di * ds + b * l * di),
+                            PEAK_FP32)])
+
+
+def phase_moe_train_times(gen, card):
+    """The training kernels at the shapes the cut deepseek-v2-236b and
+    jamba-1.5-large-398b rounds add: lowrank_linear at each target (m, n)
+    (x (4, 128, m) bf16, r 8) with its reads a lift-free
+    forward, galore_precond_step at each round-0 bucket (fp32 g, mode
+    PRECOND_UT) with its launches a round; then one jamba Mamba layer's
+    plain scan (``models/mamba.py::_scan``, no kernel of the port) forward
+    and backward through autograd at the training batch, eager and by
+    ``torch.profiler``'s sum of its CUDA kernels (the autograd backward
+    cannot be graph-captured here), against mamba_scan_grad_bound."""
+    from repro_torch.kernels import galore_adamw as ga
+    from repro_torch.models import mamba as mamba_lib
+    rows = []
+    for arch in MOE_TRAIN_TARGETS:
+        plan = moe_train_plan(arch)
+        for (m, n), reads in plan["reads"].items():
+            rows.append(_lowrank_time_row(
+                gen, card, m, n, (TRAIN_B, TRAIN_L), arch=arch,
+                reads_per_forward=reads))
+            emit(rows[-1])
+        for lead, mm, nn in plan["buckets"]:
+            rows.append(_precond_time_row(
+                gen, card, ga.PRECOND_UT, lead, mm, nn, torch.float32,
+                arch=arch, launches_per_round0=_FWD))
+            emit(rows[-1])
+    b, l = TRAIN_B, TRAIN_L
+    di, ds = 2 * 8192, 16
+    a = -torch.arange(1, ds + 1, dtype=torch.float32,
+                      device="cuda").expand(di, ds)
+
+    def case():
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda")
+        return dict(
+            xc=rnd(b, l, di).to(torch.bfloat16).requires_grad_(),
+            delta=torch.nn.functional.softplus(rnd(b, l, di))
+            .requires_grad_(), bmat=rnd(b, l, ds).requires_grad_(),
+            cmat=rnd(b, l, ds).requires_grad_(),
+            h=torch.zeros(b, di, ds, device="cuda"), dy=rnd(b, l, di))
+
+    def fwd_bwd(c):
+        y, _ = mamba_lib._scan(c["xc"], c["delta"], c["bmat"], c["cmat"], a,
+                               c["h"])
+        return torch.autograd.grad(y, (c["xc"], c["delta"], c["bmat"],
+                                       c["cmat"]), c["dy"])
+
+    sets = [case() for _ in range(2)]
+    b_ms, b_by = mamba_scan_grad_bound(b, l, di, ds)
+    row = {"phase": "train_times", "kernel": "mamba_scan_grad",
+           "card": card, "B": b, "L": l, "d_inner": di, "d_state": ds,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "forward_bound_ms": mamba_scan_bound(b, l, di, ds)[0],
+           "ms": time_ms(fwd_bwd, sets, warmup=2, iters=5),
+           "device_ms": profiled_ms(fwd_bwd, sets, calls=3)["ms"],
+           "device_from": "torch.profiler", "layers_per_forward": 3,
+           "note": "plain PyTorch: the scan has no kernel"}
+    row["device_bound_share"] = b_ms / row["device_ms"]
+    emit(row)
+    rows.append(row)
+    return rows
+
+
 def phase_train_times(gen, card):
     """Each training kernel, its plain version and the library call at the
     path's shapes; the bound from each call's bytes and operations."""
     from repro_torch.kernels import batched_eigh as be
-    from repro_torch.kernels import galore_adamw as ga
-    from repro_torch.kernels import lowrank_linear as ll
     from repro_torch.kernels import ref
     rows = []
-    c1, c2 = ga.bias_corrections(3, 0.9, 0.999)
     for (m, n), per_layer in TRAIN_SHAPES.items():
-        per = 2 * (m * n + TRAIN_B * TRAIN_L * (m + n))
-        sets = [_lowrank_case(gen, (TRAIN_B, TRAIN_L), m, n, torch.bfloat16)
-                for _ in range(max(2, -(-150_000_000 // per)))]
-        c = sets[0]
-        rows_ = TRAIN_B * TRAIN_L
-        b_ms, b_by = _bound(
-            2 * (c["x"].numel() + c["w"].numel() + rows_ * n)
-            + 4 * (c["basis"].numel() + c["rt"].numel()),
-            [(2.0 * rows_ * m * n, PEAK_BF16),
-             (2.0 * rows_ * TRAIN_R * (m + n), PEAK_FP32)])
-        before = dict(ll.lowrank_linear.routes)
-        ll.lowrank_linear(c["x"], c["w"], c["basis"], c["rt"], c["scale"],
-                          side=c["side"])
-        row = {"phase": "train_times", "kernel": "lowrank_linear",
-               "card": card, "x": [TRAIN_B, TRAIN_L, m], "w": [m, n],
-               "route": _route_taken(ll.lowrank_linear, before),
-               "per_layer": per_layer, "bound_ms": b_ms, "bound_by": b_by,
-               "library": "torch.matmul(x, W), base product only"}
-        rows.append(_timed(row, {
-            "ms": lambda c: ll.lowrank_linear(c["x"], c["w"], c["basis"],
-                                              c["rt"], c["scale"],
-                                              side=c["side"]),
-            "plain_ms": lambda c: ref.lowrank_linear_ref(
-                c["x"], c["w"], c["basis"], c["rt"], c["scale"],
-                side=c["side"]),
-            "library_ms": lambda c: torch.matmul(c["x"], c["w"])}, sets))
+        rows.append(_lowrank_time_row(gen, card, m, n, (TRAIN_B, TRAIN_L),
+                                      per_layer=per_layer))
         emit(rows[-1])
-        del sets
     rows += galore_times(gen, card)
     # jacobi_eigh: the three 𝒮 buckets of the path, then two shapes
     # recorded beside them (rank 16; a 64-client cohort, 6,144 matrices)
@@ -4232,6 +4697,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_mamba_scan_times(gen, card)
 
+    # training path at the published widths, the depth cut (CUT_LAYERS):
+    # deepseek-v2-236b (MLA + MoE) and jamba-1.5-large-398b (Mamba hybrid)
+    moe_checked = {name: train_checked[name][1] for name in
+                   ("lowrank_linear", "galore_precond_step", "jacobi_eigh")}
+    moe_train = {"train_" + arch.split("-")[0]:
+                 phase_train_moe(arch, args.seed, card, moe_checked)
+                 for arch in MOE_TRAIN_TARGETS}
+
     # training path, the paper's roberta and vit backbones
     backbone_checked = {name: train_checked[name][1] for name in
                         ("lowrank_linear", "galore_precond_step",
@@ -4248,7 +4721,7 @@ def main(argv=None) -> int:
     rwkv_train = phase_train_rwkv(args.seed, card, rwkv_checked)
     backbone = {"train_roberta": (nlu_launches_, nlu_routes),
                 "train_vit": (vit_launches, vit_routes),
-                "train_rwkv": rwkv_train}
+                "train_rwkv": rwkv_train, **moe_train}
 
     rows = phase_times(gen, card)
     phase_times(gen, card, RWKV_SHAPES, "rwkv6-1.6b")
@@ -4257,6 +4730,7 @@ def main(argv=None) -> int:
     scan_rows = phase_rwkv_times(gen, card)
     bwd_rows = phase_rwkv_bwd_times(gen, card)
     flash_rows = phase_flash_times(gen, card)
+    phase_moe_train_times(gen, card)
 
     decode = [r for r in rows if r["shape"] == "decode"]
     per_layer = {k: sum(LAYER_MIX[(r["m"], r["n"])] * r[k] for r in decode)

@@ -57,9 +57,16 @@
 // same columns and rows, and sums them in the same order, whatever g's
 // type or the load form, so a bf16 g and its fp32 copy give equal results,
 // bit for bit. Ranks r <= RMAX run the RMAX instantiation with B
-// zero-padded to whole groups of 4. The C entry point refuses (returns
-// cudaErrorInvalidConfiguration) a basis whose shared memory exceeds the
-// device's opt-in limit per block.
+// zero-padded to whole groups of 4.
+//
+// A basis too large for a block's shared memory (plan(): at r = 8 past
+// about 7,200 rows on the right, 5,200 on the left, as a width-8192
+// model's projections) is read from global memory instead (the GB
+// instantiations): the same 16-byte quads at the
+// same points of the loops, served by L1 and L2, so the sums and their
+// order are those of the staged form. The C entry point refuses (returns
+// cudaErrorInvalidConfiguration) shared memory past the device's opt-in
+// limit per block.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -261,7 +268,7 @@ __device__ __forceinline__ float4 basis_quad(const float* __restrict__ bb,
   if (j >= rows) return make_float4(0.f, 0.f, 0.f, 0.f);
   const float* p = bb + (size_t)j * r + 4 * kg;
   if ((r & 3) == 0 && (reinterpret_cast<uintptr_t>(bb) & 15) == 0)
-    return *reinterpret_cast<const float4*>(p);
+    return __ldg(reinterpret_cast<const float4*>(p));
   const int n = r - 4 * kg;
   return make_float4(p[0], n > 1 ? p[1] : 0.f, n > 2 ? p[2] : 0.f,
                      n > 3 ? p[3] : 0.f);
@@ -327,9 +334,12 @@ __device__ __forceinline__ void reduce_scatter(float* v, int lane) {
 }
 
 // Grid (blocks per batch item, batch); RIGHT_THREADS threads. Shared
-// memory: B as KG * CHUNK * NQ float4s, then NV floats a warp for u~.
-template <int RMAX, typename T>
-__global__ void __launch_bounds__(RIGHT_THREADS, 3)
+// memory: B as KG * CHUNK * NQ float4s (none with GB: B read from global
+// memory), then NV floats a warp for u~. With GB, two blocks a
+// multiprocessor (the global reads' addresses need registers past the 168
+// of three).
+template <int RMAX, typename T, bool GB>
+__global__ void __launch_bounds__(RIGHT_THREADS, GB ? 2 : 3)
 right_kernel(const T* __restrict__ g, const float* __restrict__ basis,
              const float* m_in, const float* v_in, float* m_out,
              float* v_out, float* u_out, void* w, int w_bf16, int M, int N,
@@ -341,19 +351,27 @@ right_kernel(const T* __restrict__ g, const float* __restrict__ basis,
   const int KG = (r + 3) >> 2;
   const int NQ = (N + CHUNK - 1) / CHUNK;
   float4* bs = smem4;
-  float* uts = reinterpret_cast<float*>(smem4 + (size_t)KG * CHUNK * NQ);
+  float* uts = reinterpret_cast<float*>(
+      smem4 + (GB ? 0 : (size_t)KG * CHUNK * NQ));
   const size_t blk = blockIdx.y;
   const float* bb = basis + blk * (size_t)N * r;
-  for (int q = threadIdx.x; q < NQ; q += blockDim.x) {
+  // B(q * CHUNK + c, 4kg..4kg+3): staged, or from global memory
+  auto bq = [&](int q, int c, int kg) -> float4 {
+    if constexpr (GB) return basis_quad(bb, q * CHUNK + c, N, r, kg);
+    else return bs[(kg * CHUNK + c) * NQ + q];
+  };
+  if constexpr (!GB) {
+    for (int q = threadIdx.x; q < NQ; q += blockDim.x) {
 #pragma unroll
-    for (int c = 0; c < CHUNK; ++c)
+      for (int c = 0; c < CHUNK; ++c)
 #pragma unroll
-      for (int kg = 0; kg < KGMAX; ++kg)
-        if (kg < KG)
-          bs[(kg * CHUNK + c) * NQ + q] =
-              basis_quad(bb, q * CHUNK + c, N, r, kg);
+        for (int kg = 0; kg < KGMAX; ++kg)
+          if (kg < KG)
+            bs[(kg * CHUNK + c) * NQ + q] =
+                basis_quad(bb, q * CHUNK + c, N, r, kg);
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
@@ -430,7 +448,7 @@ right_kernel(const T* __restrict__ g, const float* __restrict__ basis,
 #pragma unroll
           for (int kg = 0; kg < KGMAX; ++kg) {
             if (kg < KG) {
-              const float4 b = bs[(kg * CHUNK + h * H + c) * NQ + q];
+              const float4 b = bq(q, h * H + c, kg);
 #pragma unroll
               for (int i = 0; i < R; ++i)
                 fma4(gv[i][c], b, v + i * RMAX + 4 * kg);
@@ -454,7 +472,7 @@ right_kernel(const T* __restrict__ g, const float* __restrict__ basis,
 #pragma unroll
             for (int kg = 0; kg < KGMAX; ++kg) {
               if (kg < KG) {
-                const float4 b = bs[(kg * CHUNK + h * H + c) * NQ + q];
+                const float4 b = bq(q, h * H + c, kg);
 #pragma unroll
                 for (int i = 0; i < R; ++i)
                   fma4(gv[i][c], b, v + i * RMAX + 4 * kg);
@@ -497,7 +515,7 @@ right_kernel(const T* __restrict__ g, const float* __restrict__ basis,
 #pragma unroll
         for (int kg = 0; kg < KGMAX; ++kg) {
           if (kg < KG) {
-            const float4 b = bs[(kg * CHUNK + c) * NQ + q];
+            const float4 b = bq(q, c, kg);
 #pragma unroll
             for (int i = 0; i < R; ++i) {
               u[i][c] = fmaf(ug[i][kg].x, b.x, u[i][c]);
@@ -521,9 +539,9 @@ right_kernel(const T* __restrict__ g, const float* __restrict__ basis,
 // ----------------------------------------------------------- left side --
 
 // Grid (column tiles of 32 * C, batch); LEFT_THREADS threads. Shared
-// memory: B as KG * M float4s, then LEFT_WARPS * NV * 32 floats of partial
-// sums (reused for u~).
-template <int RMAX, typename T>
+// memory: B as KG * M float4s (none with GB: B read from global memory),
+// then LEFT_WARPS * NV * 32 floats of partial sums (reused for u~).
+template <int RMAX, typename T, bool GB>
 __global__ void __launch_bounds__(LEFT_THREADS, 2)
 left_kernel(const T* __restrict__ g, const float* __restrict__ basis,
             const float* m_in, const float* v_in, float* m_out, float* v_out,
@@ -536,15 +554,22 @@ left_kernel(const T* __restrict__ g, const float* __restrict__ basis,
   extern __shared__ float4 smem4[];
   const int KG = (r + 3) >> 2;
   float4* bs = smem4;
-  float* red = reinterpret_cast<float*>(smem4 + (size_t)KG * M);
+  float* red = reinterpret_cast<float*>(smem4 + (GB ? 0 : (size_t)KG * M));
   const size_t blk = blockIdx.y;
   const float* bb = basis + blk * (size_t)M * r;
-  for (int i = threadIdx.x; i < M; i += blockDim.x) {
+  // B(i, 4kg..4kg+3): staged, or from global memory
+  auto bq = [&](int i, int kg) -> float4 {
+    if constexpr (GB) return basis_quad(bb, i, M, r, kg);
+    else return bs[kg * M + i];
+  };
+  if constexpr (!GB) {
+    for (int i = threadIdx.x; i < M; i += blockDim.x) {
 #pragma unroll
-    for (int kg = 0; kg < KGMAX; ++kg)
-      if (kg < KG) bs[kg * M + i] = basis_quad(bb, i, M, r, kg);
+      for (int kg = 0; kg < KGMAX; ++kg)
+        if (kg < KG) bs[kg * M + i] = basis_quad(bb, i, M, r, kg);
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int col0 = (blockIdx.x * 32 + lane) * C;
@@ -597,7 +622,7 @@ left_kernel(const T* __restrict__ g, const float* __restrict__ basis,
 #pragma unroll
           for (int kg = 0; kg < KGMAX; ++kg) {
             if (kg < KG) {
-              const float4 b = bs[kg * M + i];
+              const float4 b = bq(i, kg);
 #pragma unroll
               for (int c = 0; c < C; ++c)
                 fma4(gv[c], b, v + c * RMAX + 4 * kg);
@@ -621,7 +646,7 @@ left_kernel(const T* __restrict__ g, const float* __restrict__ basis,
 #pragma unroll
           for (int kg = 0; kg < KGMAX; ++kg) {
             if (kg < KG) {
-              const float4 b = bs[kg * M + i + s];
+              const float4 b = bq(i + s, kg);
 #pragma unroll
               for (int c = 0; c < C; ++c)
                 fma4(gv[s][c], b, v + c * RMAX + 4 * kg);
@@ -672,7 +697,7 @@ left_kernel(const T* __restrict__ g, const float* __restrict__ basis,
 #pragma unroll
     for (int kg = 0; kg < KGMAX; ++kg) {
       if (kg < KG) {
-        const float4 b = bs[kg * M + i];
+        const float4 b = bq(i, kg);
 #pragma unroll
         for (int c = 0; c < C; ++c) {
           u[c] = fmaf(b.x, ug[c][kg].x, u[c]);
@@ -694,13 +719,15 @@ cudaError_t launch(const T* g, const float* basis, const float* m_in,
                    const float* v_in, float* m_out, float* v_out,
                    float* u_out, void* w, int w_bf16, int batch, int M,
                    int N, int r, int side, int mode, int vec, int threads,
-                   int blocks_x, int smem, const AdamArgs& a,
+                   int blocks_x, int smem, int gbasis, const AdamArgs& a,
                    cudaStream_t stream) {
   int dev = 0, limit = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (smem > limit) return cudaErrorInvalidConfiguration;
-  auto kern = side == 0 ? right_kernel<RMAX, T> : left_kernel<RMAX, T>;
+  auto kern = side == 0
+      ? (gbasis ? right_kernel<RMAX, T, true> : right_kernel<RMAX, T, false>)
+      : (gbasis ? left_kernel<RMAX, T, true> : left_kernel<RMAX, T, false>);
   if (threads != (side == 0 ? RIGHT_THREADS : LEFT_THREADS))
     return cudaErrorInvalidValue;
   if (smem > 48 * 1024)
@@ -717,12 +744,12 @@ int dispatch(const void* g, const float* basis, const float* m_in,
              const float* v_in, float* m_out, float* v_out, float* u_out,
              void* w, int w_bf16, int batch, int M, int N, int r, int side,
              int mode, int vec, int threads, int blocks_x, int smem,
-             const AdamArgs& a, cudaStream_t st) {
+             int gbasis, const AdamArgs& a, cudaStream_t st) {
   const T* gt = static_cast<const T*>(g);
 #define GALORE_LAUNCH(RM)                                                   \
   return (int)launch<RM, T>(gt, basis, m_in, v_in, m_out, v_out, u_out, w, \
                             w_bf16, batch, M, N, r, side, mode, vec,        \
-                            threads, blocks_x, smem, a, st)
+                            threads, blocks_x, smem, gbasis, a, st)
   if (r <= 8) GALORE_LAUNCH(8);
   if (r <= 16) GALORE_LAUNCH(16);
   if (r <= 32) GALORE_LAUNCH(32);
@@ -737,7 +764,8 @@ int dispatch(const void* g, const float* basis, const float* m_in,
 // (batch, r, N) left. side: 0 right, 1 left. mode: 0 precond -> u_out in
 // the moment shape, 1 precond -> u_out (batch, M, N), 2 adamw -> w (batch,
 // M, N) updated in place (w_bf16: 1 for bf16, 0 for fp32). vec, threads,
-// blocks_x and smem come from kernels/galore_adamw.py::plan. 1 <= r <= 64.
+// blocks_x, smem and gbasis (1: B read from global memory, not staged)
+// come from kernels/galore_adamw.py::plan. 1 <= r <= 64.
 // Returns cudaErrorInvalidConfiguration when the shared memory exceeds the
 // device's opt-in limit per block, cudaErrorInvalidValue for an argument
 // outside these, else cudaGetLastError() after the launch.
@@ -745,8 +773,8 @@ extern "C" int galore_adamw_launch(
     const void* g, const float* basis, const float* m_in, const float* v_in,
     float* m_out, float* v_out, float* u_out, void* w, int w_bf16,
     int g_bf16, int batch, int M, int N, int r, int side, int mode, int vec,
-    int threads, int blocks_x, int smem, float b1, float omb1, float b2,
-    float omb2, float eps, float c1, float c2, float lr, float wd,
+    int threads, int blocks_x, int smem, int gbasis, float b1, float omb1,
+    float b2, float omb2, float eps, float c1, float c2, float lr, float wd,
     void* stream) {
   if (r < 1 || r > 64 || M < 1 || N < 1 || batch < 1 || blocks_x < 1 ||
       side < 0 || side > 1 || mode < 0 || mode > 2)
@@ -756,8 +784,8 @@ extern "C" int galore_adamw_launch(
   if (g_bf16)
     return dispatch<__nv_bfloat16>(g, basis, m_in, v_in, m_out, v_out, u_out,
                                    w, w_bf16, batch, M, N, r, side, mode, vec,
-                                   threads, blocks_x, smem, a, st);
+                                   threads, blocks_x, smem, gbasis, a, st);
   return dispatch<float>(g, basis, m_in, v_in, m_out, v_out, u_out, w,
                          w_bf16, batch, M, N, r, side, mode, vec, threads,
-                         blocks_x, smem, a, st);
+                         blocks_x, smem, gbasis, a, st);
 }

@@ -18,7 +18,11 @@ fp32 or bf16; the stacked leading dims flatten into the grid.
 :func:`plan` cuts a call from its arguments alone: the route (the side,
 and whether rows are moved as 16-byte pieces or one value at a time), the
 rank instantiation, the rows a warp (right) or columns a lane (left)
-holds, the block's threads, the grid and the shared memory.
+holds, the block's threads, the grid, the shared memory and where the
+basis is read: staged in shared memory, or, where it does not fit there
+(at rank 8 a basis of more than about 7,200 rows on the right or 5,200
+on the left, as in a width-8192 model), from global memory at the same
+points of the same loops.
 ``galore_precond_step.routes`` and ``galore_adamw_step.routes`` count the
 launches by route beside ``.launches``.
 """
@@ -42,10 +46,11 @@ G_DTYPES = (torch.float32, torch.bfloat16)
 # The kernel's geometry (csrc/galore_adamw.cu): a lane holds NV sums (rows
 # or columns times the rank instantiation); a right lane holds CHUNK
 # columns of each of its rows; right blocks of RIGHT_THREADS, at least
-# RIGHT_BLOCKS_PER_SM resident (its __launch_bounds__); left blocks of
-# LEFT_WARPS warps.
+# RIGHT_BLOCKS_PER_SM resident (its __launch_bounds__; RIGHT_GB_BLOCKS_PER_SM
+# where it reads the basis from global memory); left blocks of LEFT_WARPS
+# warps.
 NV, CHUNK = 64, 8
-RIGHT_THREADS, RIGHT_BLOCKS_PER_SM = 128, 3
+RIGHT_THREADS, RIGHT_BLOCKS_PER_SM, RIGHT_GB_BLOCKS_PER_SM = 128, 3, 2
 LEFT_WARPS = 8
 # g of these types streams through a cp.async ring of RING_STAGES in
 # shared memory where its rows are 16-byte aligned (csrc's GALORE_RING_*
@@ -68,7 +73,9 @@ class Plan(NamedTuple):
     ``tile``: rows a right block walks in one batch item (at most), or
     columns a left block takes. ``grid``: (blocks per batch item, batch).
     ``vec``: every (M, N) operand moved as pieces of up to 16 bytes.
-    ``smem``: dynamic shared memory in bytes."""
+    ``smem``: dynamic shared memory in bytes. ``basis``: "shared" (staged
+    once a block) or "global" (read through L1 / L2 where staging would
+    not fit a block's shared memory)."""
     route: str
     rmax: int
     hold: int
@@ -77,6 +84,7 @@ class Plan(NamedTuple):
     grid: tuple
     vec: bool
     smem: int
+    basis: str
 
 
 def rank_instance(r: int) -> int:
@@ -110,9 +118,10 @@ def plan(side: str, M: int, N: int, r: int, g_dtype, mode: int, *,
     persistent grid of at most the card's resident blocks over the batch,
     at least :data:`MIN_TILE_ROWS` rows a block, each block's warps
     taking groups of ``hold`` rows in turn. Left: one block a tile of
-    32·hold columns, its warps splitting M into contiguous ranges. Raises
-    ValueError when the staged basis does not fit in a block's shared
-    memory."""
+    32·hold columns, its warps splitting M into contiguous ranges. A basis
+    whose staged copy does not fit in a block's shared memory is read from
+    global memory instead (``basis="global"``; the sums and their order
+    are the same)."""
     if g_dtype not in G_DTYPES:
         raise TypeError(f"g must be float32 or bfloat16, got {g_dtype}")
     if side not in (RIGHT, LEFT):
@@ -130,9 +139,14 @@ def plan(side: str, M: int, N: int, r: int, g_dtype, mode: int, *,
         ring = vec and g_dtype in RING_DTYPES
         threads = RIGHT_THREADS
         warps = threads // 32
-        smem = 16 * kg * CHUNK * -(-N // CHUNK) + 4 * warps * NV + \
+        staged = 16 * kg * CHUNK * -(-N // CHUNK)
+        smem = 4 * warps * NV + \
             (16 * RING_STAGES * warps * hold * 32 if ring else 0)
-        per_sm = min(RIGHT_BLOCKS_PER_SM, SMEM_PER_SM // (smem + 1024))
+        basis = "shared" if staged + smem <= SMEM_LIMIT else "global"
+        smem += staged if basis == "shared" else 0
+        per_sm = min(RIGHT_BLOCKS_PER_SM if basis == "shared"
+                     else RIGHT_GB_BLOCKS_PER_SM,
+                     SMEM_PER_SM // (smem + 1024))
         groups = -(-M // hold)
         blocks = max(1, min(-(-groups // warps), (sms * per_sm) // batch,
                             -(-M // MIN_TILE_ROWS)))
@@ -141,15 +155,15 @@ def plan(side: str, M: int, N: int, r: int, g_dtype, mode: int, *,
         ring = vec and g_dtype in RING_DTYPES and \
             hold * g_dtype.itemsize % 16 == 0
         threads = LEFT_WARPS * 32
-        smem = 16 * kg * M + 4 * LEFT_WARPS * NV * 32     # ring inside
+        staged = 16 * kg * M
+        smem = 4 * LEFT_WARPS * NV * 32                   # ring inside
+        basis = "shared" if staged + smem <= SMEM_LIMIT else "global"
+        smem += staged if basis == "shared" else 0
         tile = 32 * hold
         blocks = -(-N // tile)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"galore kernel: the {side} basis ({N if side == RIGHT else M}, {r}) "
-                         f"needs {smem} bytes of shared memory, over a "
-                         f"block's {SMEM_LIMIT}")
     route = side + ("_ring" if ring else "" if vec else "_scalar")
-    return Plan(route, rmax, hold, tile, threads, (blocks, batch), vec, smem)
+    return Plan(route, rmax, hold, tile, threads, (blocks, batch), vec, smem,
+                basis)
 
 
 def coverage(p: Plan, M: int, N: int):
@@ -212,7 +226,7 @@ def _lib():
     lib = _build.load("galore_adamw")
     fn = lib.galore_adamw_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 13
                        + [ctypes.c_float] * 9 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -269,12 +283,11 @@ def _launch(g, basis, m, v, w, u, mode, side, *, b1, b2, eps, c1, c2, lr,
                  int(w is not None and w.dtype == torch.bfloat16),
                  int(g.dtype == torch.bfloat16), batch, mm, nn, r,
                  0 if side == RIGHT else 1, mode, int(p.vec), p.threads,
-                 p.grid[0], p.smem, b1, 1.0 - b1, b2, 1.0 - b2, eps, c1, c2,
-                 lr, wd, stream)
+                 p.grid[0], p.smem, int(p.basis == "global"), b1, 1.0 - b1,
+                 b2, 1.0 - b2, eps, c1, c2, lr, wd, stream)
     if err == _SMEM_REFUSED:
-        raise ValueError(f"galore kernel: the {side} basis "
-                         f"{tuple(basis.shape[-2:])} does not fit in the "
-                         "device's shared memory per block")
+        raise ValueError(f"galore kernel: the device refused {p.smem} bytes "
+                         "of shared memory per block")
     if err != 0:
         raise RuntimeError(f"galore kernel launch failed ({p.route}): CUDA "
                            f"error {err}")

@@ -187,8 +187,17 @@ def lowrank_apply(side, x, w, basis, rt, nsq, scale):
     probe: its gradient is the exact ``‖xᵀ∂y‖²_F`` of the dense weight
     gradient, from token Grams (:func:`_sqnorm_gram`), so global-norm
     clipping matches the transient-lift path without the m×n cotangent
-    ever existing. A weight read more than once per forward would sum the
-    probe over its uses; every dense-family weight is read once."""
+    ever existing. Caveat, as in the reference: autograd sums the probe
+    across *uses* of a leaf, so a weight read more than once per forward
+    (MLA's ``kv_b`` at or above ``attn_chunk``, once per visited chunk
+    pair in ``_mla_blockwise``) gets ``Σᵤ‖gᵤ‖²`` instead of the exact
+    ``‖Σᵤgᵤ‖²``: the sign-indefinite cross-use terms are missing, so it is
+    neither a bound nor exact. The reference gates that configuration
+    off the lift-free path in its sharded round step (``launch/steps.py::
+    make_fed_round_step``, ROADMAP Queue 1 item 12), not in
+    ``FedEngine``; the port mirrors the per-use sum, as the reference
+    computes it, and does not correct it. Every single-read weight is
+    exact."""
     return _LowRankApply.apply(side, x, w, basis, rt, nsq, scale)
 
 

@@ -78,6 +78,8 @@ def _run(method, jcfg, tcfg, jparams, tparams):
     je = JFedEngine(JFedConfig(**_fed_kw(method)),
                     loss_fn=lambda p, b: jmodel.loss_fn(p, jcfg, b),
                     params=jparams, target_fn=jtarget(jcfg))
+    if je._method_syncs():
+        je.synced_v = je._zero_synced_template()   # one compile, same round 0
     te = FedEngine(FedConfig(**_fed_kw(method)),
                    loss_fn=lambda p, b: tmodel.loss_fn(p, tcfg, b),
                    params=tparams, target_fn=galore_target_fn(tcfg))
@@ -192,8 +194,9 @@ def test_unported_paths_raise_naming_the_roadmap():
     """Every method builds in every round form, with the population and
     defense settings too (ROADMAP Queue 1 item 10 is ported); MLA and
     Mamba (items 11.5 and 11.6) are ported too, so ``loss_fn`` of an MLA
-    config gives a finite loss where it was refused; ``FedEngine`` still
-    refuses MLA and Mamba models, naming item 11.9 (their rounds)."""
+    config gives a finite loss where it was refused; and their rounds
+    (item 11.9): ``FedEngine`` builds on MLA and Mamba-hybrid models and
+    runs a fedgalore round with finite losses."""
     from repro_torch.core.fed import METHODS
     from repro_torch.core.population import ParticipationConfig
     for method in METHODS:
@@ -219,11 +222,13 @@ def test_unported_paths_raise_naming_the_roadmap():
     hybrid = dataclasses.replace(cfg, name="hybrid", mla=False,
                                  attn_period=2, attn_offset=1)
     for c in (cfg, hybrid):
-        with pytest.raises(NotImplementedError, match="item 11.9"):
-            FedEngine(FedConfig(**_fed_kw("fedgalore")),
-                      loss_fn=lambda p, b, c=c: tmodel.loss_fn(p, c, b),
-                      params=tmodel.init_params(c, device="cpu"),
-                      target_fn=galore_target_fn(c))
+        eng = FedEngine(FedConfig(**_fed_kw("fedgalore")),
+                        loss_fn=lambda p, b, c=c: tmodel.loss_fn(p, c, b),
+                        params=tmodel.init_params(c, device="cpu"),
+                        target_fn=galore_target_fn(c))
+        assert eng._lift_free
+        losses = eng.run_round(batch)["local_loss"]
+        assert losses.shape == (C, T) and bool(torch.isfinite(losses).all())
 
 
 def test_run_rounds_is_a_loop_of_rounds():

@@ -278,19 +278,20 @@ def test_plan_covers_every_element_once(lead, mm, nn, g_dtype, r):
     """Each row and each column of a batch item is visited once by the
     kernel's loops (a right warp's row groups and lane's chunks, a left
     block's columns and warp's rows), in every mode; the shared memory
-    fits a block, or plan() refuses the call."""
+    fits a block, the basis staged in it only where it fits."""
     side = _side(mm, nn)
     if r > min(mm, nn):
         r = min(mm, nn)
     batch = int(np.prod(lead))
     for mode in (tkern.PRECOND_UT, tkern.PRECOND_U, tkern.ADAMW):
-        try:
-            p = tkern.plan(side, mm, nn, r, g_dtype, mode, batch=batch)
-        except ValueError:
-            dim = nn if side == tkern.RIGHT else mm
-            assert dim * -(-r // 4) * 16 > tkern.SMEM_LIMIT - 65536
-            continue
+        p = tkern.plan(side, mm, nn, r, g_dtype, mode, batch=batch)
+        staged = 16 * -(-r // 4) * (-(-nn // 8) * 8 if side == tkern.RIGHT
+                                    else mm)
         assert p.smem <= tkern.SMEM_LIMIT
+        if p.basis == "shared":
+            assert p.smem >= staged
+        else:
+            assert p.basis == "global" and p.smem + staged > tkern.SMEM_LIMIT
         assert p.grid[1] == batch and p.grid[0] >= 1
         rows, cols = tkern.coverage(p, mm, nn)
         assert torch.all(rows == 1) and torch.all(cols == 1)
@@ -316,6 +317,32 @@ def test_plan_path_buckets():
                 assert p.tile >= tkern.MIN_TILE_ROWS
             else:
                 assert p.tile == 256 and p.grid[0] == -(-nn // 256)
+
+
+# jamba-1.5-large-398b's round-0 buckets at rank 8: every basis of 8192
+# rows takes 256 KB, over a block's shared memory; (8192, 1024) stages.
+WIDE_BUCKETS = [((2, 1), 8192, 1024, "shared"),
+                ((2, 1), 8192, 8192, "global"),
+                ((4, 1), 8192, 24576, "global"),
+                ((3, 1), 8192, 32768, "global"),
+                ((2, 1), 24576, 8192, "global"),
+                ((3, 1), 16384, 8192, "global")]
+
+
+@pytest.mark.parametrize("lead,mm,nn,where", WIDE_BUCKETS)
+def test_plan_reads_a_wide_basis_from_global_memory(lead, mm, nn, where):
+    """A basis whose staged copy exceeds a block's shared memory is read
+    from global memory: the same routes, loops and coverage, no staged
+    bytes in the shared memory."""
+    side = _side(mm, nn)
+    for g_dtype in (torch.float32, torch.bfloat16):
+        p = tkern.plan(side, mm, nn, 8, g_dtype, tkern.PRECOND_UT,
+                       batch=int(np.prod(lead)))
+        assert p.basis == where and p.smem <= tkern.SMEM_LIMIT
+        assert p.route == side + ("_ring" if g_dtype == torch.bfloat16
+                                  else "")
+        rows, cols = tkern.coverage(p, mm, nn)
+        assert torch.all(rows == 1) and torch.all(cols == 1)
 
 
 @pytest.mark.parametrize("side", [tkern.RIGHT, tkern.LEFT])
@@ -360,9 +387,10 @@ def test_plan_route_follows_rank_and_dtype():
         tkern.rank_instance(65)
     with pytest.raises(TypeError):
         tkern.plan(tkern.RIGHT, 64, 64, 8, torch.float16, tkern.PRECOND_UT)
-    with pytest.raises(ValueError):    # a (1024, 64) basis is 256 KB
-        tkern.plan(tkern.RIGHT, 2048, 1024, 64, torch.float32,
+    # a (1024, 64) basis is 256 KB: read from global memory, not staged
+    p = tkern.plan(tkern.RIGHT, 2048, 1024, 64, torch.float32,
                    tkern.PRECOND_U)
+    assert p.basis == "global" and p.smem <= tkern.SMEM_LIMIT - 65536
 
 
 @pytest.mark.parametrize("side,m,n", [("right", 37, 20), ("left", 20, 44)])

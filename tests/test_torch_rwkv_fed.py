@@ -86,6 +86,7 @@ def runs():
         je = JFedEngine(JFedConfig(**fkw),
                         loss_fn=lambda p, b: jmodel.loss_fn(p, jcfg, b),
                         params=jparams, target_fn=jtarget(jcfg))
+        je.synced_v = je._zero_synced_template()   # one compile, same round 0
         te = FedEngine(FedConfig(**fkw),
                        loss_fn=lambda p, b: tmodel.loss_fn(p, tcfg, b),
                        params=tparams, target_fn=galore_target_fn(tcfg))
