@@ -75,6 +75,17 @@ weights from ``--seed``):
   Mamba's projections lift-free through ``lowrank_linear``; 𝒮 through
   ``jacobi_eigh``) and one FedIT round, the MoE routed to the plain
   run's experts for the gated readings.
+* the federated runtime, ``fedsim.ShardedFederation`` on the card's
+  one-device mesh (``launch.mesh.make_host_mesh``) at the qwen rounds'
+  traffic: qwen1.5-0.5b at full width for two ``run_round`` rounds and
+  ``run_rounds`` over two more, every round lift-free through
+  ``lowrank_linear`` (round 0 too: its refresh is seeded-random) with
+  𝒮 through ``jacobi_eigh``, the masked, attacked and quarantined calls
+  held bit for bit to the honest round, and ``make_prefill_step`` /
+  ``make_decode_step`` (``flash_attention`` at prefill) to
+  ``model.prefill`` / ``decode_step``; the cut deepseek-v2-236b for two
+  rounds, each through ``galore_precond_step`` (MLA with ``attn_chunk``
+  keeps the transient read, the gate of ``make_fed_round_step``).
 
 Every dense prefill's attention goes through ``flash_attention`` (qwen,
 starcoder2, granite, mistral-nemo, jamba's attention layer), as do the
@@ -3259,25 +3270,30 @@ def phase_population(seed, card, checked, gen, train_controls):
 
 
 class RoundLog:
-    """Records every ``FedEngine.run_round`` while active, whoever built
-    the engine (an example's ``main`` too): the round's seconds, its
-    per-step local losses and batches, the launches and routes of each
-    kernel in the call (counts set to 0 just before it and read just
-    after), and the global target leaves before the first round and after
-    each.
+    """Records every ``FedEngine.run_round`` (with ``runtime``, every
+    ``ShardedFederation.run_round``, those ``run_rounds`` makes too) while
+    active, whoever built the engine (an example's ``main`` too): the
+    round's seconds, its per-step local losses and batches, the launches
+    and routes of each kernel in the call (counts set to 0 just before it
+    and read just after), and the global target leaves before the first
+    round and after each.
     ``launches`` / ``routes`` total the whole run from entry: the rounds'
     counts and those read between and after them (evaluations). With
     ``host`` the snapshots after each round are copied to the host, and
     the one before the first round holds the leaves themselves (for runs
     from weights no engine writes in place)."""
 
-    def __init__(self, host=False):
-        self.host = host
+    def __init__(self, host=False, runtime=False):
+        self.host, self.runtime = host, runtime
 
     def __enter__(self):
         from repro_torch.core.fed import FedEngine
+        from repro_torch.fedsim import ShardedFederation
         from repro_torch.utils import tree
-        self.cls, self.orig = FedEngine, FedEngine.run_round
+        cls = ShardedFederation if self.runtime else FedEngine
+        loss_key, batch_key = (("losses", "batches") if self.runtime
+                               else ("local_loss", "client_batches"))
+        self.cls, self.orig = cls, cls.run_round
         self.rounds, self.snaps, self.batches = [], [], []
         self.launches = dict.fromkeys(_counted(), 0)
         self.routes = {k: dict.fromkeys(v, 0)
@@ -3296,7 +3312,7 @@ class RoundLog:
         def run_round(engine, *args, **kw):
             if not log.snaps:
                 log.snaps.append(snap(engine))
-            log.batches.append(args[0] if args else kw["client_batches"])
+            log.batches.append(args[0] if args else kw[batch_key])
             torch.cuda.synchronize()
             log._bank()                 # launches since the last reading
             t0 = time.perf_counter()
@@ -3307,11 +3323,11 @@ class RoundLog:
             log.rounds.append({
                 "round": len(log.rounds), "seconds": seconds,
                 "launches": launches, "routes": routes,
-                "losses": metrics["local_loss"].cpu()})
+                "losses": metrics[loss_key].cpu()})
             log.snaps.append(snap(engine))
             return metrics
 
-        FedEngine.run_round = run_round
+        cls.run_round = run_round
         return self
 
     def _bank(self):
@@ -3960,12 +3976,12 @@ def _freed(run):
     return run
 
 
-def _moe_rounds_rows(phase, cfg, card, run, kind):
+def _moe_rounds_rows(phase, cfg, card, run, kind, lr=RWKV_LR):
     for r in run.rl.rounds:
         emit({"phase": phase, "run": kind, "arch": cfg.name, "card": card,
               "round": r["round"], "clients": CLIENTS,
               "local_steps": LOCAL_STEPS, "batch": TRAIN_B,
-              "seq": TRAIN_L, "rank": TRAIN_R, "lr": RWKV_LR,
+              "seq": TRAIN_L, "rank": TRAIN_R, "lr": lr,
               "round_s": r["seconds"], "agg_s": r.get("agg_s"),
               "sync_s": r.get("sync_s"), "launches": r["launches"],
               "routes": r["routes"], "losses": r["losses"].tolist(),
@@ -4155,6 +4171,660 @@ def phase_train_moe(arch, seed, card, checked):
     emit({"phase": phase, "arch": cfg.name, "card": card,
           "phase_s": time.perf_counter() - t_phase,
           "launches": launches, "routes": routes})
+    return launches, routes
+
+
+# The federated runtime (stated before its first run): fedsim.
+# ShardedFederation on a one-card mesh (launch.mesh.make_host_mesh), phase
+# train's traffic (C = 4, T = 2, batch 4 x 128, rank 8, the same batches)
+# under TrainSpec(refresh_mode="random", refresh_every=200, local_steps=2):
+# the seeded-random refresh with no adaptive step reads round 0 lift-free
+# too, so every qwen round launches lowrank_linear 168 times a forward and
+# no galore_precond_step, and 𝒮 runs jacobi_eigh once a bucket (3). MLA
+# with attn_chunk set keeps deepseek-v2-236b on the transient read in every
+# round (make_fed_round_step's gate): galore_precond_step once a bucket a
+# client step (mode PRECOND_UT, fp32 g after the clip), no lowrank_linear,
+# as moe_train_plan derives round 0's. The runtime keeps each client's
+# moments across rounds, so these rounds are not FedEngine's.
+# qwen: two run_round rounds, then run_rounds over two more, through the
+# kernels and with every plain version; gated as phase train: per-step
+# losses within TRAIN_LOSS_BOUND and D within TRAIN_DELTA_BOUND, both
+# dropped-round controls above it (after the first readings: the two
+# run_round rounds, each bound raised to its floor controls' mean plus
+# three standard deviations, a loss control above; RUNTIME_FLOOR_DRAWS).
+# The planted fault (each basis rolled by one column on its way into
+# lowrank_linear, the kernel on) must fail those gates: its loss or its D
+# above its bound.
+# Exact on the card, bit for bit: run_rounds equals two run_round calls
+# from the same state; from the state after round 1, an all-true mask and
+# an all-ones attack (each canonicalized to the honest call, and each
+# again through the masked round, _masked_round, that run_round takes for
+# a mask or an attack) and an honest round with quarantine on
+# (RUNTIME_ZMAX pinned high, as tests/test_robust.py pins it) each equal
+# the honest unmasked round; with one client's uplink scaled by
+# RUNTIME_SCALE the quarantine gives that client weight 0. make_prefill_step
+# and make_decode_step on the round's global params equal model.prefill /
+# model.decode_step bit for bit (24 flash_attention launches a prefill).
+# deepseek-v2-236b cut to CUT_LAYERS at RWKV_LR: two run_round rounds,
+# gated per round as phase_train_moe gates its round 0 (runs routed to
+# the plain run's experts): losses within max(TRAIN_LOSS_BOUND, the
+# embedding-ulp control's), the loss control above; D against a run with
+# a float64 GaLore preconditioner within max(TRAIN_DELTA_BOUND, the plain
+# run's own D against it, the embedding-ulp control's D against the plain
+# run), the round's update lost and the planted fault (each bucket's basis
+# rolled by one column into the kernel) above, in both rounds. Every gated
+# run (plain, float64, kernels pinned, controls, fault) runs under
+# _deterministic, so the MoE's atomic adds move no reading, and a second
+# plain run must equal the first bit for bit; the kernel run with free
+# routing, the path as users run it, keeps the atomic adds.
+RUNTIME_ROUNDS = 4
+RUNTIME_LAUNCHES = {"galore_precond_step": 0, "jacobi_eigh": 3,
+                    "lowrank_linear": 168 * _FWD}
+RUNTIME_PREFILL = {"flash_attention": 24}
+RUNTIME_ZMAX, RUNTIME_SCALE = 50.0, 1e3
+# qwen's floor controls (added after the first readings, PERF.md §6), over
+# the two run_round rounds the gates read: the plain run with 1 % of the
+# embedding one bf16 ulp up and with half of lowrank_linear's outputs one
+# ulp off, each from RUNTIME_FLOOR_DRAWS seeds, and with its base product
+# through the library's tensor-core GEMM. At this learning rate any
+# rounding difference grows into a loss and D reading drawn from one
+# chaotic distribution (ROADMAP Queue 3 ae), so each gate is that
+# distribution's mean plus RUNTIME_FLOOR_SIGMAS standard deviations over
+# the draws, or the phase train bound where that is larger.
+RUNTIME_FLOOR_DRAWS = 4
+RUNTIME_FLOOR_SIGMAS = 3.0
+RUNTIME_DECODE_STEPS = 4
+
+
+def _clone(t):
+    from repro_torch.utils import tree
+    return tree.tree_map(lambda x: x.clone() if torch.is_tensor(x) else x, t)
+
+
+def _runtime_fed(cfg, seed, lr, **kw):
+    """``ShardedFederation`` of ``cfg`` on the card's one-device mesh at
+    phase train's traffic (FedConfig fields as TrainSpec's: rank, lr,
+    local steps, seed; its weight decay 0.01 and clip 1.0)."""
+    from repro_torch.fedsim import ShardedFederation
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import TrainSpec
+    spec = TrainSpec(rank=TRAIN_R, lr=lr, local_steps=LOCAL_STEPS,
+                     seed=seed, refresh_mode="random", refresh_every=200)
+    return ShardedFederation(cfg, spec, make_host_mesh(1), CLIENTS,
+                             seed=seed, **kw)
+
+
+def _fed_state(fed):
+    """A copy of the federation's round state: global trainables, stacked
+    client states, round index."""
+    return (_clone(fed.global_trainable), _clone(fed.opt_states),
+            fed.round_idx)
+
+
+def _set_state(fed, state):
+    fed.global_trainable, fed.opt_states = _clone(state[0]), _clone(state[1])
+    fed.round_idx = state[2]
+
+
+def _same_state(a, b) -> bool:
+    from repro_torch.utils import tree
+    la = tree.tree_leaves((a[0], a[1]))
+    lb = tree.tree_leaves((b[0], b[1]))
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if torch.is_tensor(x) else x == y
+        for x, y in zip(la, lb))
+
+
+def _runtime_batches(cfg, seed, rounds):
+    """Phase train's batches (its task, batcher and seed), one per round."""
+    from repro_torch.data import FederatedBatcher, seq_classification
+    task = seq_classification(n_examples=256, n_classes=4, seq_len=TRAIN_L,
+                              vocab=cfg.vocab_size, seed=seed)
+    batcher = FederatedBatcher(task, n_clients=CLIENTS, batch_size=TRAIN_B,
+                               alpha=0.5, seed=seed)
+    return [batcher.round_batches(LOCAL_STEPS) for _ in range(rounds)]
+
+
+@contextlib.contextmanager
+def _quarantine_weights():
+    """The effective weights each quarantine of the rounds gives
+    (``aggregation.quarantine_weights``' results, on the host)."""
+    from repro_torch.core import aggregation as agg
+    orig, seen = agg.quarantine_weights, []
+
+    def logged(w, keep):
+        out = orig(w, keep)
+        seen.append(out.detach().cpu())
+        return out
+
+    agg.quarantine_weights = logged
+    try:
+        yield seen
+    finally:
+        agg.quarantine_weights = orig
+
+
+@contextlib.contextmanager
+def _rounding_noise(seed, share=0.5):
+    """Every kernel's plain version, with a ``share`` of
+    ``lowrank_linear``'s output entries one unit in the last place off, up
+    or down at random from ``seed`` (what another summation order of the
+    base product does there; ``scripts/rwkv_train_floor.py``'s control):
+    the rounding floor of a path whose kernel sums in another order than
+    its plain version. Gradients pass through unchanged."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    orig = ops.lowrank_linear
+
+    def moved(*args, **kw):
+        t = orig(*args, **kw)
+        x = t.detach()
+        up = torch.rand(x.shape, generator=gen, device=x.device) < 0.5
+        to = torch.where(up, float("inf"), float("-inf")).to(x.dtype)
+        pick = torch.rand(x.shape, generator=gen, device=x.device) < share
+        return t + torch.where(pick, torch.nextafter(x, to) - x, 0)
+
+    ops.lowrank_linear = moved
+    try:
+        with ops.plain_kernels():
+            yield
+    finally:
+        ops.lowrank_linear = orig
+
+
+@contextlib.contextmanager
+def _tensor_core_plain():
+    """Every kernel's plain version, ``lowrank_linear``'s base product
+    through the library's bf16 GEMM (cuBLAS on the tensor cores, one bf16
+    rounding) instead of fp32: the rounding floor of tensor-core
+    arithmetic on a path."""
+    from repro_torch.kernels import lowrank_linear as ll
+    from repro_torch.kernels import ops
+    orig = ops.lowrank_linear
+
+    def tc(x, w, basis, rt, scale, *, side=None):
+        side = side or ll.infer_side(w.shape, basis.shape, rt.shape)
+        x32, b32, r32 = x.float(), basis.float(), rt.float()
+        delta = (x32 @ r32) @ b32.mT if side == "right" else \
+            (x32 @ b32) @ r32
+        return (scale * torch.matmul(x, w).float() + delta).to(x.dtype)
+
+    ops.lowrank_linear = tc
+    try:
+        with ops.plain_kernels():
+            yield
+    finally:
+        ops.lowrank_linear = orig
+
+
+@contextlib.contextmanager
+def _rolled_lowrank_basis():
+    """The runtime's planted fault for ``lowrank_linear``: each basis
+    rolled by one column on its way into the kernel (the forward; its
+    backward is PyTorch's and keeps the basis), so the low-rank term is
+    read in coordinates its accumulator does not have."""
+    from repro_torch.kernels import ops
+    orig = ops.lowrank_linear
+
+    def rolled(x, w, basis, rt, scale, **kw):
+        return orig(x, w, torch.roll(basis, 1, dims=-1), rt, scale, **kw)
+
+    ops.lowrank_linear = rolled
+    try:
+        yield
+    finally:
+        ops.lowrank_linear = orig
+
+
+@contextlib.contextmanager
+def _bumped_embedding(fed, seed=None):
+    """While active, the federation's embedding table with 1 % of its
+    entries (drawn from ``seed``; None: none) one bf16 ulp up
+    (``_bump_embed``: the rounding-floor control)."""
+    frozen = fed.frozen
+    if seed is not None:
+        fed.frozen = dict(frozen, embed=dict(
+            frozen["embed"], w=_bump_embed(frozen["embed"]["w"], seed)))
+    try:
+        yield
+    finally:
+        fed.frozen = frozen
+
+
+def phase_train_runtime(seed, card, checked, gen):
+    """qwen1.5-0.5b at full width through the runtime: two run_round
+    rounds and run_rounds over two more (kernels, then plain), the
+    exactness gates from the state after round 1, and the prefill /
+    decode steps on the round's global params. Returns the kernel run's
+    launches and routes (the prefill step's flash launches included)."""
+    from types import SimpleNamespace
+    from repro_torch.core.fed import merge_dense
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import model as model_lib
+    from repro_torch.utils import tree
+    phase = "train_runtime"
+    t_phase = time.perf_counter()
+    cfg = _full_config("qwen1.5-0.5b")
+    fed = _runtime_fed(cfg, seed, TRAIN_LR)
+    start = _fed_state(fed)
+    bats = _runtime_batches(cfg, seed, RUNTIME_ROUNDS)
+    tail = {k: np.stack([b[k] for b in bats[2:]]) for k in bats[2]}
+
+    def run(plain, bump=None, noise=None, tensor_core=False, fault=False,
+            tail_too=True):
+        """The two run_round rounds and, with ``tail_too``, run_rounds
+        over the next two; returns the RoundLog, the shapes seen, and the
+        states after round 1 and at the end."""
+        _set_state(fed, start)
+        with (_rounding_noise(noise) if noise is not None
+              else _tensor_core_plain() if tensor_core
+              else _plain_or_kernels(plain)), \
+                (_rolled_lowrank_basis() if fault
+                 else contextlib.nullcontext()), \
+                _bumped_embedding(fed, bump), \
+                RoundLog(runtime=True) as rl, ShapeLog(TRAIN_LOG) as sl:
+            for b in bats[:2]:
+                fed.run_round(b)
+            mid = _fed_state(fed)
+            if tail_too:
+                out = fed.run_rounds(tail)
+                check(tuple(out["losses"].shape)
+                      == (2, CLIENTS, LOCAL_STEPS), f"{phase}: run_rounds "
+                      f"losses {tuple(out['losses'].shape)}")
+        return rl, sl.seen, mid, _fed_state(fed)
+
+    torch.cuda.reset_peak_memory_stats()
+    rl, seen, mid, end = run(plain=False)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _check_rwkv_path(phase, rl, seen, checked, [RUNTIME_LAUNCHES])
+    _moe_rounds_rows(phase, cfg, card, SimpleNamespace(rl=rl, peak=peak),
+                     "kernel", TRAIN_LR)
+    plain_rl = run(plain=True)[0]
+    for r in plain_rl.rounds:
+        check(sum(r["launches"].values()) == 0,
+              f"{phase}: the plain run launched kernels: {r['launches']}")
+    _moe_rounds_rows(phase, cfg, card, SimpleNamespace(rl=plain_rl,
+                                                       peak=None),
+                     "plain", TRAIN_LR)
+    floor_rls = {f"{kind}_{i}": run(plain=True, tail_too=False,
+                                    **{kw: seed + off + i})[0]
+                 for kind, kw, off in (("embed_ulp", "bump", 5),
+                                       ("rounding_noise", "noise", 13))
+                 for i in range(RUNTIME_FLOOR_DRAWS)}
+    floor_rls["tensor_core_plain"] = run(plain=True, tensor_core=True,
+                                         tail_too=False)[0]
+    fault_rl = run(plain=False, fault=True, tail_too=False)[0]
+    for name, c in (*floor_rls.items(), ("fault", fault_rl)):
+        _moe_rounds_rows(phase, cfg, card, SimpleNamespace(rl=c, peak=None),
+                         name, TRAIN_LR)
+    init, want = plain_rl.snaps[0], plain_rl.snaps[2]
+    check(all(torch.equal(a, b) for a, b in zip(rl.snaps[0], init)),
+          f"{phase}: the kernel and plain runs did not start alike")
+    no_round0 = [f.float() - (r0.float() - i.float()) for f, r0, i in
+                 zip(rl.snaps[2], rl.snaps[1], init)]
+    first = _runtime_first_step_losses(fed, init, bats[1])
+    two = SimpleNamespace(rounds=rl.rounds[:2])
+    parity = {
+        "max_abs_loss_diff": _loss_diff(two, plain_rl),
+        "max_abs_loss_diff_4_rounds": _loss_diff(rl, plain_rl),
+        "delta_rel_fro": _change_rel(rl.snaps[2], want, init)[0],
+        "delta_rel_fro_4_rounds": _change_rel(rl.snaps[4],
+                                              plain_rl.snaps[4], init)[0],
+        "floor": {name: {"loss": _loss_diff(c, plain_rl),
+                         "delta": _change_rel(c.snaps[2], want, init)[0]}
+                  for name, c in floor_rls.items()},
+        "fault": {"loss": _loss_diff(fault_rl, plain_rl),
+                  "delta": _change_rel(fault_rl.snaps[2], want, init)[0]},
+        "loss_control": (first - plain_rl.rounds[1]["losses"][:, 0])
+        .abs().max().item(),
+        "controls": {"round1_dropped": _change_rel(rl.snaps[1], want,
+                                                   init)[0],
+                     "round0_dropped": _change_rel(no_round0, want,
+                                                   init)[0]}}
+    for key, bound in (("loss", TRAIN_LOSS_BOUND),
+                       ("delta", TRAIN_DELTA_BOUND)):
+        draws = np.array([c[key] for c in parity["floor"].values()])
+        parity[f"{key}_floor_largest"] = float(draws.max())
+        parity[f"{key}_gate"] = max(bound, float(
+            draws.mean() + RUNTIME_FLOOR_SIGMAS * draws.std(ddof=1)))
+    del plain_rl, floor_rls, fault_rl, no_round0
+
+    # exact on the card: run_rounds is two run_round calls; from the state
+    # after round 1 the canonicalized calls are the honest round
+    _set_state(fed, mid)
+    seq_losses = [fed.run_round(b)["losses"] for b in bats[2:]]
+    exact = {"run_rounds_equals_run_round": _same_state(
+        _fed_state(fed), end) and all(torch.equal(a.cpu(), r["losses"])
+                                      for a, r in zip(seq_losses,
+                                                      rl.rounds[2:]))}
+
+    def from_mid(f, **call):
+        _set_state(f, mid)
+        losses = f.run_round(bats[2], **call)["losses"]
+        return losses, _fed_state(f)
+
+    honest = from_mid(fed)
+    fq = _runtime_fed(cfg, seed, TRAIN_LR, quarantine=True,
+                      quarantine_zmax=RUNTIME_ZMAX)
+    fq.frozen = fed.frozen
+    def uncanonicalized(**call):
+        """``from_mid`` with the mask and the attack passed on as given,
+        so an all-true mask or an all-ones attack takes the masked round
+        (``_masked_round``) instead of being made the honest call."""
+        fed._canon_mask = lambda m: None if m is None else np.asarray(m, bool)
+        fed._canon_attack = lambda a: None if a is None else \
+            torch.as_tensor(np.asarray(a, np.float32), device=fed.device)
+        try:
+            return from_mid(fed, **call)
+        finally:
+            del fed._canon_mask, fed._canon_attack
+
+    ones_mask, ones_attack = np.ones(CLIENTS, bool), np.ones(CLIENTS,
+                                                             np.float32)
+    variants = {"all_true_mask": lambda: from_mid(fed, mask=ones_mask),
+                "all_ones_attack": lambda: from_mid(fed, attack=ones_attack),
+                "masked_round_all_true_mask": lambda: uncanonicalized(
+                    mask=ones_mask),
+                "masked_round_all_ones_attack": lambda: uncanonicalized(
+                    attack=ones_attack),
+                "quarantine_honest": lambda: from_mid(fq)}
+    for name, make in variants.items():
+        losses, st = make()
+        exact[name] = torch.equal(losses, honest[0]) and \
+            _same_state(st, honest[1])
+    check(fed._round_masked is not None, f"{phase}: the masked round was "
+          "never built")
+    scaled = np.ones(CLIENTS, np.float32)
+    scaled[1] = RUNTIME_SCALE
+    with _quarantine_weights() as qw:
+        losses, st = from_mid(fq, attack=scaled)
+    screened = {"weights": qw[-1].tolist() if qw else None,
+                "finite": all(bool(torch.isfinite(x.float()).all())
+                              for x in tree.tree_leaves(st[0]))}
+    del fq, st
+
+    # the serving steps on the round's global params
+    with torch.no_grad():
+        params = merge_dense(fed.frozen, fed.global_trainable)
+        toks = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen,
+                             device="cuda")
+        cache = PROMPT + RUNTIME_DECODE_STEPS
+        _zero_counts()
+        with ShapeLog(BACKBONE_LOG) as sl:
+            logits, st = steps_lib.make_prefill_step(cfg, cache)(params,
+                                                                 toks)
+            torch.cuda.synchronize()
+        pre_launches, pre_routes = _launch_counts(), _route_counts()
+        _zero_counts()
+        want_l, want_st = model_lib.prefill(
+            params, cfg, toks, model_lib.init_decode_state(
+                cfg, B, cache, device="cuda"))
+        steps_equal = [torch.equal(logits, want_l)]
+        decode = steps_lib.make_decode_step(cfg)
+        tok = logits.argmax(-1).to(torch.int32)
+        for _ in range(RUNTIME_DECODE_STEPS):
+            got, st = decode(params, tok, st)
+            ref_l, want_st = model_lib.decode_step(params, cfg, tok, want_st)
+            steps_equal.append(torch.equal(got, ref_l))
+            tok = got.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        _zero_counts()
+    _check_shapes(phase, sl.seen, checked)
+    _check_launches(f"{phase} prefill step", pre_launches, RUNTIME_PREFILL)
+    _check_tc_routes(f"{phase} prefill step", pre_launches, pre_routes)
+    del params, fed, start, mid, end, honest
+    torch.cuda.empty_cache()
+
+    row = {"phase": phase + "_parity", "arch": cfg.name, "card": card,
+           **parity, "exact": exact,
+           "quarantine_scaled": screened, "steps_equal": steps_equal,
+           "prefill_launches": pre_launches,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    check(parity["max_abs_loss_diff"] <= parity["loss_gate"], f"{phase}: "
+          f"losses differ by {parity['max_abs_loss_diff']} > "
+          f"{parity['loss_gate']}")
+    check(parity["loss_control"] > parity["loss_gate"], f"{phase}: round "
+          f"1's losses with round 0's update lost differ by "
+          f"{parity['loss_control']}, not above {parity['loss_gate']}")
+    check(parity["delta_rel_fro"] <= parity["delta_gate"], f"{phase}: the "
+          f"rounds' change of the leaves differs by "
+          f"{parity['delta_rel_fro']} > {parity['delta_gate']}")
+    check(min(parity["controls"].values()) > parity["delta_gate"],
+          f"{phase}: a dropped-round control reads {parity['controls']}, "
+          f"not above {parity['delta_gate']}")
+    check(parity["fault"]["loss"] > parity["loss_gate"]
+          or parity["fault"]["delta"] > parity["delta_gate"],
+          f"{phase}: the planted fault reads {parity['fault']}, within the "
+          f"gates {parity['loss_gate']} / {parity['delta_gate']}")
+    check(all(exact.values()), f"{phase}: not bit for bit: {exact}")
+    w = screened["weights"]
+    check(w is not None and w[1] == 0.0 and all(x > 0 for i, x in
+                                                enumerate(w) if i != 1)
+          and screened["finite"], f"{phase}: the quarantine kept the "
+          f"scaled client: {screened}")
+    check(all(steps_equal), f"{phase}: make_prefill_step / "
+          f"make_decode_step differ from model.prefill / decode_step: "
+          f"{steps_equal}")
+    launches = {k: v + pre_launches[k] for k, v in rl.launches.items()}
+    routes = {k: {rt: n + pre_routes.get(k, {}).get(rt, 0)
+                  for rt, n in by.items()} for k, by in rl.routes.items()}
+    return launches, routes
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """While active, every op that has a deterministic algorithm on the
+    card takes it (the MoE combine's ``index_add`` and the backward of
+    ``gather`` and of indexing, atomic adds otherwise), so a run is a fixed
+    function of its inputs. Memory ``torch.empty`` hands out is left
+    unfilled, as outside. cuBLAS's own warning (its results on one stream
+    do not vary from run to run) is silenced; any other op without a
+    deterministic algorithm still warns, and the repeat gate of
+    ``phase_train_runtime_deepseek`` reads what is left."""
+    import warnings
+    import torch.utils.deterministic as det
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           det.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    det.fill_uninitialized_memory = False
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=".*CuBLAS.*")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        det.fill_uninitialized_memory = was[2]
+
+
+def _runtime_moe_run(fed, start, bats, *, plain=False, pin=None,
+                     exact=False, fault=False, bump=None,
+                     deterministic=True):
+    """The federation's rounds over ``bats`` from ``start``, logged with
+    host snapshots, as ``_moe_run`` runs FedEngine's: through the kernels
+    or every plain version (``plain``), the GaLore preconditioner in
+    float64 (``exact``), the planted fault (``fault``), 1 % of the
+    embedding table (drawn from the seed ``bump``) one bf16 ulp up; every
+    MoE layer routed to ``pin`` or freely; under ``_deterministic`` unless
+    ``deterministic`` is false."""
+    from types import SimpleNamespace
+    _set_state(fed, start)
+    torch.cuda.reset_peak_memory_stats()
+    with (_exact_precond() if exact else _plain_or_kernels(plain)), \
+            (_rolled_basis() if fault else contextlib.nullcontext()), \
+            (_deterministic() if deterministic
+             else contextlib.nullcontext()), \
+            _bumped_embedding(fed, bump), \
+            RouteLog(pin) as route, \
+            RoundLog(host=True, runtime=True) as rl, \
+            ShapeLog(TRAIN_LOG) as sl:
+        for b in bats:
+            fed.run_round(b)
+        torch.cuda.synchronize()
+    return SimpleNamespace(rl=rl, picks=route.picks, seen=sl.seen,
+                           peak=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _runtime_first_step_losses(fed, leaves, batches):
+    """Each client's loss on its first local batch at the global target
+    leaves ``leaves`` (every kernel's plain version)."""
+    from repro_torch.core.fed import merge_dense
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as model_lib
+    from repro_torch.utils import tree
+    treedef = tree.tree_flatten(fed.global_trainable)[1]
+    params = merge_dense(fed.frozen, treedef.unflatten(
+        [x.to("cuda") for x in leaves]))
+    out = []
+    with ops.plain_kernels(), torch.no_grad():
+        for c in range(CLIENTS):
+            batch = {k: torch.as_tensor(v[c, 0], device="cuda")
+                     for k, v in batches.items()}
+            out.append(float(model_lib.loss_fn(params, fed.cfg, batch)))
+    return torch.tensor(out)
+
+
+def phase_train_runtime_deepseek(seed, card, checked):
+    """deepseek-v2-236b at its published widths, the depth cut, through
+    the runtime: two run_round rounds, each on the transient read (the MLA
+    gate). Runs from one state: plain (free routing; its picks pin the
+    gated runs), float64 preconditioner, kernels pinned (gated), kernels
+    free (the main path as users run it: its launches are the kernels'
+    counts), the embedding-ulp control, the planted fault. Returns the
+    free run's launches and routes."""
+    arch = "deepseek-v2-236b"
+    phase = "train_runtime_deepseek"
+    plan = moe_train_plan(arch)
+    per_round = [plan["launches"][0]]        # the transient read each round
+    t_phase = time.perf_counter()
+    x = torch.ones(8, 8, device="cuda", requires_grad=True)
+    torch.autograd.grad((x @ x).sum(), x)
+    cfg = _full_config(arch)
+    fed = _runtime_fed(cfg, seed, RWKV_LR)
+    start = _fed_state(fed)
+    bats = _runtime_batches(cfg, seed, 2)
+    torch.cuda.synchronize()
+    emit({"phase": phase, "arch": cfg.name, "card": card,
+          "n_layers": cfg.n_layers, "cut_from": FULL_LAYERS[arch],
+          "attn_chunk": cfg.attn_chunk,
+          "params_b": cfg.param_count() / 1e9,
+          "setup_s": time.perf_counter() - t_phase,
+          "resident_gib": torch.cuda.memory_allocated() / 2 ** 30,
+          "per_round": per_round, "galore_routes": plan["routes"]})
+
+    first = []
+
+    def run(kind, checked_path=False, **kw):
+        out = _runtime_moe_run(fed, start, bats, **kw)
+        # every run starts from the plain run's leaves; one copy is kept
+        if first:
+            check(all(torch.equal(a, b) for a, b in
+                      zip(out.rl.snaps[0], first[0])), f"{phase} {kind}: "
+                  "the run did not start from the plain run's leaves")
+            out.rl.snaps[0] = first[0]
+        else:
+            first.append(out.rl.snaps[0])
+        if checked_path:
+            _check_rwkv_path(f"{phase} {kind}", out.rl, out.seen, checked,
+                             per_round, galore_routes=plan["routes"])
+        _moe_rounds_rows(phase, cfg, card, out, kind)
+        return out
+
+    plain = run("plain", plain=True)
+    init = plain.rl.snaps[0]
+    check(sorted(tuple(x.shape) for x in init)
+          == sorted(MOE_TRAIN_TARGETS[arch]), f"{phase}: the federation "
+          f"trains {sorted(tuple(x.shape) for x in init)}, not the stated "
+          "targets")
+    for r in plain.rl.rounds:
+        check(sum(r["launches"].values()) == 0,
+              f"{phase}: the plain run launched kernels: {r['launches']}")
+    pin = plain.picks
+    runs = {"plain_repeat": run("plain_repeat", plain=True),
+            "f64": run("f64", exact=True, pin=pin),
+            "kernel_pinned": run("kernel_pinned", True, pin=pin),
+            "kernel_free": run("kernel_free", True, deterministic=False),
+            "fault": run("fault", pin=pin, fault=True),
+            **{f"embed_ulp_{i}": run(f"embed_ulp_{i}", plain=True, pin=pin,
+                                     bump=seed + 5 + i)
+               for i in range(RUNTIME_FLOOR_DRAWS)}}
+    a, k = plain.rl, runs["kernel_pinned"].rl
+    e, u, f = (runs[n].rl for n in ("f64", "embed_ulp_0", "fault"))
+    ulps = [runs[f"embed_ulp_{i}"].rl for i in range(RUNTIME_FLOOR_DRAWS)]
+    lost0 = _runtime_first_step_losses(fed, init, a.batches[1])
+    plain1 = a.rounds[1]["losses"][:, 0]
+    rounds = []
+    for r in range(2):
+        got = {"round": r,
+               "delta_vs_f64": _change_rel(k.snaps[r + 1], e.snaps[r + 1],
+                                           init)[0],
+               "plain_vs_f64": _change_rel(a.snaps[r + 1], e.snaps[r + 1],
+                                           init)[0],
+               "embed_ulp_vs_plain": _change_rel(u.snaps[r + 1],
+                                                 a.snaps[r + 1], init)[0],
+               "round_lost": _change_rel(k.snaps[r], e.snaps[r + 1],
+                                         init)[0],
+               "fault_vs_f64": _change_rel(f.snaps[r + 1], e.snaps[r + 1],
+                                           init)[0],
+               "delta_vs_plain": _change_rel(k.snaps[r + 1], a.snaps[r + 1],
+                                             init)[0]}
+        got["gate"] = max(TRAIN_DELTA_BOUND, got["plain_vs_f64"],
+                          got["embed_ulp_vs_plain"])
+        # reported, not gated: every plain run's distance from the float64
+        # run (the plain run's and the embedding-ulp draws')
+        got["floor_vs_f64"] = [got["plain_vs_f64"]] + [
+            _change_rel(x.snaps[r + 1], e.snaps[r + 1], init)[0]
+            for x in ulps]
+        rounds.append(got)
+    free = runs["kernel_free"].rl
+    rep = runs["plain_repeat"].rl
+    repeat_equal = (
+        all(torch.equal(x["losses"], y["losses"])
+            for x, y in zip(rep.rounds, a.rounds))
+        and all(torch.equal(x, y) for sa, sb in zip(rep.snaps[1:],
+                                                    a.snaps[1:])
+                for x, y in zip(sa, sb))
+        and all(torch.equal(x, y) for x, y in zip(runs["plain_repeat"].picks,
+                                                  pin)))
+    row = {"phase": phase + "_parity", "arch": cfg.name, "card": card,
+           "plain_repeat_bit_for_bit": repeat_equal,
+           "loss": _loss_diff(k, a), "loss_embed_ulp": _loss_diff(u, a),
+           "loss_control": (lost0 - plain1).abs().max().item(),
+           "rounds": rounds,
+           "free": {"loss": _loss_diff(free, a),
+                    "delta": _change_rel(free.snaps[-1], a.snaps[-1],
+                                         init)[0],
+                    "routing_flip_share": routing_flip_share(
+                        runs["kernel_free"].picks, pin)},
+           "pinned_own_flip_share": routing_flip_share(
+               runs["kernel_pinned"].picks, pin),
+           "peak_gib": {"plain": plain.peak,
+                        **{n: out.peak for n, out in runs.items()}}}
+    row["loss_gate"] = max(TRAIN_LOSS_BOUND, row["loss_embed_ulp"])
+    emit(row)
+    check(row["loss"] <= row["loss_gate"], f"{phase}: losses differ by "
+          f"{row['loss']} > {row['loss_gate']}")
+    check(row["loss_control"] > row["loss_gate"], f"{phase}: round 1's "
+          f"losses with round 0's update lost differ by "
+          f"{row['loss_control']}, not above {row['loss_gate']}")
+    check(repeat_equal, f"{phase}: two deterministic plain runs from one "
+          "state differ")
+    for got in rounds:
+        check(got["delta_vs_f64"] <= got["gate"], f"{phase} round "
+              f"{got['round']}: the leaves' change is {got['delta_vs_f64']} "
+              f"from the float64 run's > {got['gate']}")
+        check(got["round_lost"] > got["gate"] and got["fault_vs_f64"]
+              > got["gate"], f"{phase} round {got['round']}: the round lost "
+              f"({got['round_lost']}) or the planted fault "
+              f"({got['fault_vs_f64']}) reads under {got['gate']}")
+    launches, routes = free.launches, free.routes
+    del fed, start, plain, runs, a, k, e, u, f, ulps, free, rep, init
+    torch.cuda.empty_cache()
+    emit({"phase": phase, "arch": cfg.name, "card": card,
+          "phase_s": time.perf_counter() - t_phase, "launches": launches,
+          "routes": routes})
     return launches, routes
 
 
@@ -4705,6 +5375,14 @@ def main(argv=None) -> int:
                  phase_train_moe(arch, args.seed, card, moe_checked)
                  for arch in MOE_TRAIN_TARGETS}
 
+    # the federated runtime on the card's one-device mesh: qwen1.5-0.5b at
+    # full width, then the cut deepseek-v2-236b (one model at a time)
+    runtime = {"train_runtime": phase_train_runtime(
+        args.seed, card, {**moe_checked, "flash_attention": flash_checked},
+        gen)}
+    runtime["train_runtime_deepseek"] = phase_train_runtime_deepseek(
+        args.seed, card, moe_checked)
+
     # training path, the paper's roberta and vit backbones
     backbone_checked = {name: train_checked[name][1] for name in
                         ("lowrank_linear", "galore_precond_step",
@@ -4721,7 +5399,7 @@ def main(argv=None) -> int:
     rwkv_train = phase_train_rwkv(args.seed, card, rwkv_checked)
     backbone = {"train_roberta": (nlu_launches_, nlu_routes),
                 "train_vit": (vit_launches, vit_routes),
-                "train_rwkv": rwkv_train, **moe_train}
+                "train_rwkv": rwkv_train, **moe_train, **runtime}
 
     rows = phase_times(gen, card)
     phase_times(gen, card, RWKV_SHAPES, "rwkv6-1.6b")

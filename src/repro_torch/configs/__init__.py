@@ -4,9 +4,11 @@ mistral-nemo-12b, command-r-35b and the paper's backbones), the MoE
 models granite-moe-1b-a400m and deepseek-v2-236b (MLA), the
 Mamba/attention hybrid jamba-1.5-large-398b, rwkv6-1.6b, and the vlm /
 audio backbones behind their stub frontends (pixtral-12b,
-musicgen-medium)."""
+musicgen-medium) — and the four input shapes (``shapes``)."""
 from .base import (ArchConfig, get_config, list_configs, register,
                    smoke_variant)
+from .shapes import (LONG_CONTEXT_WINDOW, SHAPES, ShapeSpec, cache_len,
+                     input_specs, shape_variant)
 
 # The ten architectures assigned to this paper (public pool).
 ASSIGNED_ARCHS = [
@@ -22,5 +24,8 @@ ASSIGNED_ARCHS = [
     "rwkv6-1.6b",
 ]
 
-__all__ = ["ArchConfig", "get_config", "list_configs", "register",
-           "smoke_variant", "ASSIGNED_ARCHS"]
+__all__ = [
+    "ArchConfig", "get_config", "list_configs", "register", "smoke_variant",
+    "SHAPES", "ShapeSpec", "input_specs", "shape_variant", "cache_len",
+    "LONG_CONTEXT_WINDOW", "ASSIGNED_ARCHS",
+]

@@ -217,6 +217,256 @@ def _index(batches: PyTree, i: int) -> PyTree:
     return tree.tree_map(lambda v: v[i], batches)
 
 
+# ------------------------------------------------- the round's pieces -------
+# FedEngine and the runtime's round step (``launch.steps.
+# make_fed_round_step``) run their local phases, guard, 𝒜 and 𝒮 through
+# these, each with its own round-level choices.
+
+def loss_and_grads(loss_of: Callable, trainable: PyTree):
+    """(detached loss, gradient tree) of ``loss_of(trainable)`` wrt every
+    leaf of ``trainable``; a leaf the loss does not reach (FFA-LoRA's
+    frozen A) gets zeros, as under ``stop_gradient``."""
+    leaves, tdef = tree.tree_flatten(trainable)
+    leaves = [x.detach().requires_grad_(True) for x in leaves]
+    loss = loss_of(tdef.unflatten(leaves))
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), tdef.unflatten(
+        [torch.zeros_like(x) if g is None else g
+         for g, x in zip(grads, leaves)])
+
+
+def dense_local_step(tx, loss_of: Callable, trainable, opt_state):
+    """One local step of one client on its own dense trainables:
+    autograd of ``loss_of``, ``tx.update``, ``apply_updates``. Returns
+    (trainable, opt_state, loss)."""
+    loss, grads = loss_and_grads(loss_of, trainable)
+    with torch.no_grad():
+        updates, opt_state = tx.update(grads, opt_state, trainable)
+        trainable = optim_lib.apply_updates(trainable, updates)
+    return trainable, opt_state, loss
+
+
+def dense_local_train(tx, loss_at: Callable, trainable, opt_state, batches,
+                      n_steps: int):
+    """T local steps of one client on its own dense trainables
+    (Definition 3.1); ``loss_at(batch)`` is the loss of the trainables
+    on one batch, ``batches`` carry a leading (T, …) axis. Returns
+    (trainable, opt_state, losses (T,))."""
+    losses = []
+    for t in range(n_steps):
+        trainable, opt_state, loss = dense_local_step(
+            tx, loss_at(_index(batches, t)), trainable, opt_state)
+        losses.append(loss.float())
+    return trainable, opt_state, torch.stack(losses)
+
+
+def factored_local_train(gcfg, loss_at: Callable, global_trainable, st,
+                         batches, n_steps: int, transient: bool, *,
+                         lr: float, weight_decay: float, clip_norm):
+    """T factored local steps of one client from its state ``st``: the
+    rank-r accumulators ``R_i`` around the broadcast ``global_trainable``.
+    ``transient``: every step reads ``base_scale·W + lift(R_i)`` and
+    differentiates the dense leaves (the fused preconditioner on the
+    stacked buckets); else the lift-free read (the hoisted seeded-random
+    refresh, ``LowRankDelta`` leaves, the projected-cotangent backward,
+    clipping by the norm probes). ``loss_at`` as in
+    :func:`dense_local_train`. Returns (deltas, state, losses (T,),
+    base_scale)."""
+    dl = gal.zero_client_deltas(gal.galore_state_of(st))
+    device = tree.tree_leaves(gal.galore_state_of(st).blocks)[0].device
+    scale = torch.ones((), dtype=torch.float32, device=device)
+    losses = []
+    for t in range(n_steps):
+        loss_of = loss_at(_index(batches, t))
+        if transient:
+            with torch.no_grad():
+                tr = gal.lift_client_trainable(
+                    global_trainable, dl, gal.galore_state_of(st), scale)
+            loss, grads = loss_and_grads(loss_of, tr)
+            del tr      # the lifted copy goes before the step's fp32 copies
+        else:
+            g0 = gal.maybe_refresh_instep(gcfg, gal.galore_state_of(st))
+            st = gal.replace_galore_state(st, g0)
+            loss, grads = gal.liftfree_value_and_grad(
+                loss_of, global_trainable, dl, g0, scale)
+        with torch.no_grad():
+            dl, scale, st = gal.factored_adamw_step(
+                gcfg, grads, st, dl, scale, lr=lr,
+                weight_decay=weight_decay, clip_norm=clip_norm)
+        losses.append(loss.detach().float())
+    return dl, st, torch.stack(losses), scale
+
+
+@torch.no_grad()
+def guard_uplink(out_d, out_opt, scales, w, attack=None,
+                 quarantine: bool = False, zmax: float = 6.0):
+    """The defense gate between the local phase and 𝒜/𝒮.
+
+    1. Each client's uplink (accumulators and projected moments) is
+       multiplied by its ``attack`` entry ((C,), or None).
+    2. With ``quarantine``, the screen
+       (``aggregation.screen_factored_clients``) folds failing clients
+       into the mask path: weights zeroed and renormalized, stacks and
+       scales sanitized by selection (0·NaN never reaches a reduction),
+       moments zeroed out of the AJIVE score Gram. An all-pass verdict
+       leaves every operand bitwise as it was.
+
+    Returns (out_d, out_opt, scales, w, keep): ``keep`` (C,) bool is the
+    screen's verdict, None without ``quarantine``."""
+    tmap = tree.tree_map
+    g = gal.galore_state_of(out_opt)
+    v_tree = gal.extract_projected_v(g)
+    if attack is not None:
+        a = torch.as_tensor(attack, dtype=torch.float32,
+                            device=scales.device)
+
+        def hit(x):
+            if x is None:
+                return None
+            ab = a.reshape((-1,) + (1,) * (x.ndim - 1))
+            return (x.float() * ab).to(x.dtype)
+
+        out_d = tmap(hit, out_d)
+        v_tree = tmap(hit, v_tree, is_leaf=lambda x: x is None)
+    keep = None
+    if quarantine:
+        keep = agg.screen_factored_clients(out_d, v_tree, scales, w,
+                                           zmax=zmax)
+        out_d = agg.mask_client_rows(out_d, keep)
+        v_tree = agg.mask_client_rows(v_tree, keep)
+        scales = torch.where(keep, scales, 1.0)   # enters the sbar sum
+        w = agg.quarantine_weights(w, keep)
+    out_opt = gal.replace_galore_state(out_opt,
+                                       gal.with_projected_v(g, v_tree))
+    return out_d, out_opt, scales, w, keep
+
+
+@torch.no_grad()
+def aggregate_factored(global_trainable, out_deltas, out_opt, base_scales,
+                       w, *, hetero: bool = False, robust: str = "none",
+                       trim: float = 0.2, iters: int = 8,
+                       tol: float = 1e-6):
+    """𝒜 for factored clients: ``(Σᵢ wᵢ sᵢ)·W + Σᵢ wᵢ lift(Rᵢ, Bᵢ)`` per
+    target leaf, in projected coordinates on a shared basis or by
+    per-client lifts where bases diverged (``hetero``); ``robust`` swaps
+    the weighted mean over the factored stacks for a robust reduction
+    ('none' is exactly the plain path)."""
+    bases = gal.extract_bases(gal.galore_state_of(out_opt))
+    sbar = torch.einsum("c,c->", w, base_scales.float())
+
+    def one(w0, d_stack, b_stack):
+        side = (proj.RIGHT if d_stack.shape[-1] == b_stack.shape[-1]
+                else proj.LEFT)
+        lifted = agg.robust_factored_lift(
+            d_stack, b_stack, side, w, robust, hetero=hetero, trim=trim,
+            iters=iters, tol=tol)
+        return (sbar * w0.float() + lifted).to(w0.dtype)
+
+    return tree.tree_map(one, global_trainable, out_deltas, bases)
+
+
+def client_uplink(stacked_opt):
+    """Per-leaf lists of the client-stacked projected ṽ (C, ., r) and
+    bases (C, dim, r), and the ṽ tree's structure."""
+    g_stack = gal.galore_state_of(stacked_opt)
+    is_none = lambda x: x is None  # noqa: E731
+    vs, treedef = tree.tree_flatten(gal.extract_projected_v(g_stack),
+                                    is_leaf=is_none)
+    bs = tree.tree_leaves(gal.extract_bases(g_stack), is_leaf=is_none)
+    return vs, bs, treedef
+
+
+def block_side(v_stack, b_stack):
+    """(rank, projection side) of one client-stacked block."""
+    rank = b_stack.shape[-1]
+    return rank, proj.RIGHT if v_stack.shape[-1] == rank else proj.LEFT
+
+
+@torch.no_grad()
+def sync_factored(protocol: str, stacked_opt, w, *, hetero: bool = False,
+                  **kw):
+    """Factored 𝒮: on a shared basis the protocol runs on the projected ṽ
+    directly; on diverged bases (``hetero``) through r×r transfer Grams.
+    One batched program per shape bucket (``state_sync.
+    map_sync_leaves``). ``kw``: ``exclude_zero_weights`` and the robust
+    reduction's ``robust``, ``trim``, ``iters``, ``tol``. Returns the
+    synced ṽ tree."""
+
+    def leaf_fn(v_stack, b_stack, n_batch):
+        rank, side = block_side(v_stack, b_stack)
+        if hetero:
+            return sync_lib.sync_block_hetero_factored(
+                protocol, v_stack, b_stack, side, w, rank, **kw)
+        return sync_lib.sync_block_synced_factored(
+            protocol, v_stack, side, w, rank, batch_dims=n_batch, **kw)
+
+    vs, bs, treedef = client_uplink(stacked_opt)
+    return treedef.unflatten(sync_lib.map_sync_leaves(leaf_fn, vs, bs))
+
+
+@torch.no_grad()
+def dense_sync_block(protocol: str, v_stack, b_stack, w):
+    """Dense reference 𝒮 (the parity oracle) of one block: each client's
+    ṽ lifted with its *own* basis (right under diverged bases), the
+    protocol on the lifted views, the result re-projected onto client 0's
+    basis. Stacked scan blocks (C, nb, ., r) sync as one batch."""
+    rank, side = block_side(v_stack, b_stack)
+    v32, b32 = v_stack.float(), b_stack.float()
+    if side == proj.RIGHT:
+        views = torch.einsum("k...mr,k...nr->k...mn", v32, b32)
+    else:
+        views = torch.einsum("k...mr,k...rn->k...mn", b32, v32)
+    lifted = sync_lib.sync_lifted_views(protocol, views, w, rank)
+    return sync_lib.project_state(lifted, b_stack[0], side)
+
+
+def canon_mask(mask, k_clients: int):
+    """None or an all-true mask is None: full participation takes the
+    unmasked path. Else the (C,) bool mask."""
+    if mask is None:
+        return None
+    m = np.asarray(mask, bool).reshape(-1)
+    if m.shape != (k_clients,):
+        raise ValueError(f"mask shape {m.shape} != cohort ({k_clients},)")
+    return None if m.all() else m
+
+
+def canon_attack(attack, k_clients: int):
+    """None or an all-ones attack is None: an adversary-free round never
+    takes the guarded path on its own (a NaN entry never equals 1). Else
+    the (C,) float32 multipliers."""
+    if attack is None:
+        return None
+    a = np.asarray(attack, np.float32).reshape(-1)
+    if a.shape != (k_clients,):
+        raise ValueError(f"attack shape {a.shape} != cohort "
+                         f"({k_clients},)")
+    return None if np.all(a == 1.0) else a
+
+
+def round_masks(masks, k_rounds: int, k_clients: int):
+    """``run_rounds``' (K, C) participation masks as a bool array, or
+    None."""
+    if masks is None:
+        return None
+    masks = np.asarray(masks, bool)
+    if masks.shape != (k_rounds, k_clients):
+        raise ValueError(f"masks shape {masks.shape} != "
+                         f"({k_rounds}, {k_clients})")
+    return masks
+
+
+def rounds_in_order(run_round: Callable, round_batches, weights, masks,
+                    key: str):
+    """``run_round(round r's batches, weights, mask r)[key]`` for every
+    round of the leading (K, …) axis, in order, stacked."""
+    k_rounds = int(tree.tree_leaves(round_batches)[0].shape[0])
+    return torch.stack([
+        run_round(_index(round_batches, r), weights,
+                  None if masks is None else masks[r])[key]
+        for r in range(k_rounds)])
+
+
 # -------------------------------------------------------------- the engine --
 
 class FedEngine:
@@ -326,25 +576,11 @@ class FedEngine:
 
     def _local_train_one(self, trainable, opt_state, batches):
         """T local steps of one client on its own dense trainables
-        (Definition 3.1): autograd of the merged loss, ``tx.update``,
-        ``apply_updates``. A leaf the loss does not reach (FFA-LoRA's
-        frozen A) gets a zero gradient, as under ``stop_gradient``.
-        Returns (trainable, opt_state, losses (T,))."""
-        losses = []
-        for t in range(self.cfg.local_steps):
-            leaves, tdef = tree.tree_flatten(trainable)
-            leaves = [x.detach().requires_grad_(True) for x in leaves]
-            loss = self._trainable_loss(tdef.unflatten(leaves),
-                                        _index(batches, t))
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-            grads = tdef.unflatten([torch.zeros_like(x) if g is None else g
-                                    for g, x in zip(grads, leaves)])
-            with torch.no_grad():
-                updates, opt_state = self.tx.update(grads, opt_state,
-                                                    trainable)
-                trainable = optim_lib.apply_updates(trainable, updates)
-            losses.append(loss.detach().float())
-        return trainable, opt_state, torch.stack(losses)
+        (:func:`dense_local_train`). Returns (trainable, opt_state,
+        losses (T,))."""
+        return dense_local_train(
+            self.tx, lambda b: lambda tr: self._trainable_loss(tr, b),
+            trainable, opt_state, batches, self.cfg.local_steps)
 
     def _round0_adaptive(self) -> bool:
         """Whether round 0's in-step refresh is data-driven (RSVD of each
@@ -353,46 +589,15 @@ class FedEngine:
         return (self.galore_cfg.adaptive_steps > 0
                 and self.galore_cfg.refresh_mode != "random")
 
-    def _step(self, grads, st, dl, scale):
-        c = self.cfg
-        with torch.no_grad():
-            return gal.factored_adamw_step(
-                self.galore_cfg, grads, st, dl, scale, lr=c.lr,
-                weight_decay=c.weight_decay, clip_norm=c.clip_norm)
-
     def _local_train(self, st, batches, transient: bool):
-        """T factored local steps of one client from InitState ``st``.
-        ``transient``: every step reads ``base_scale·W + lift(R_i)`` and
-        differentiates the dense leaves; else the lift-free read. Returns
-        (deltas, opt_state, losses (T,), base_scale)."""
-        dl = gal.zero_client_deltas(gal.galore_state_of(st))
-        scale = torch.ones((), dtype=torch.float32, device=self.device)
-        losses = []
-        for t in range(self.cfg.local_steps):
-            batch = _index(batches, t)
-            if transient:
-                with torch.no_grad():
-                    tr = gal.lift_client_trainable(
-                        self.global_trainable, dl, gal.galore_state_of(st),
-                        scale)
-                leaves, tdef = tree.tree_flatten(tr)
-                leaves = [x.requires_grad_(True) for x in leaves]
-                loss = self._trainable_loss(tdef.unflatten(leaves), batch)
-                grads = tdef.unflatten(torch.autograd.grad(loss, leaves))
-                # the lifted copy (held by the loss's graph too) is freed
-                # before the step's fp32 copies
-                loss = loss.detach()
-                del tr, leaves
-            else:
-                g0 = gal.maybe_refresh_instep(self.galore_cfg,
-                                              gal.galore_state_of(st))
-                st = gal.replace_galore_state(st, g0)
-                loss, grads = gal.liftfree_value_and_grad(
-                    lambda tr: self._trainable_loss(tr, batch),
-                    self.global_trainable, dl, g0, scale)
-            dl, scale, st = self._step(grads, st, dl, scale)
-            losses.append(loss.detach().float())
-        return dl, st, torch.stack(losses), scale
+        """T factored local steps of one client from InitState ``st``
+        (:func:`factored_local_train`). Returns (deltas, opt_state,
+        losses (T,), base_scale)."""
+        c = self.cfg
+        return factored_local_train(
+            self.galore_cfg, lambda b: lambda tr: self._trainable_loss(tr, b),
+            self.global_trainable, st, batches, c.local_steps, transient,
+            lr=c.lr, weight_decay=c.weight_decay, clip_norm=c.clip_norm)
 
     # ------------------------------------------------------------ a round ---
     def _normalize_weights(self, weights, k_clients):
@@ -412,29 +617,6 @@ class FedEngine:
         return torch.as_tensor(wm / s, dtype=torch.float32,
                                device=self.device)
 
-    @staticmethod
-    def _canon_mask(mask, k_clients):
-        """None or an all-true mask is None: full participation takes the
-        unmasked path."""
-        if mask is None:
-            return None
-        m = np.asarray(mask, bool).reshape(-1)
-        if m.shape != (k_clients,):
-            raise ValueError(f"mask shape {m.shape} != cohort ({k_clients},)")
-        return None if m.all() else m
-
-    @staticmethod
-    def _canon_attack(attack, k_clients):
-        """None or an all-ones attack is None: an adversary-free round
-        never takes the guarded path on its own."""
-        if attack is None:
-            return None
-        a = np.asarray(attack, np.float32).reshape(-1)
-        if a.shape != (k_clients,):
-            raise ValueError(f"attack shape {a.shape} != cohort "
-                             f"({k_clients},)")
-        return None if np.all(a == 1.0) else a
-
     def run_round(self, client_batches: PyTree, weights=None, mask=None,
                   attack=None):
         """client_batches: a tree of arrays with leading (K clients, T
@@ -453,8 +635,8 @@ class FedEngine:
         a full mask and an all-ones attack are no mask and no attack."""
         batches = _to_device(client_batches, self.device)
         k_clients = tree.tree_leaves(batches)[0].shape[0]
-        mask = self._canon_mask(mask, k_clients)
-        attack = self._canon_attack(attack, k_clients)
+        mask = canon_mask(mask, k_clients)
+        attack = canon_attack(attack, k_clients)
         guarded = self._guard_cfg or attack is not None
         w = (self._normalize_weights(weights, k_clients) if mask is None
              else self._masked_weights(weights, mask, k_clients))
@@ -506,46 +688,16 @@ class FedEngine:
         self._client_state, self._client_opt = out_d, out_opt
         return losses
 
-    @torch.no_grad()
     def _apply_guard(self, out_d, out_opt, scales, w, attack):
-        """The defense gate between the local phase and 𝒜/𝒮.
-
-        1. Each client's uplink (accumulators and projected moments) is
-           multiplied by its ``attack`` entry.
-        2. With ``quarantine``, the screen
-           (``aggregation.screen_factored_clients``) folds failing clients
-           into the mask path: weights zeroed and renormalized, stacks and
-           scales sanitized by selection (0·NaN never reaches a
-           reduction), moments zeroed out of the AJIVE score Gram. An
-           all-pass verdict leaves every operand bitwise as it was.
-
-        Returns (out_d, out_opt, scales, w) and sets ``self.quarantined``.
-        """
-        tmap = tree.tree_map
-        g = gal.galore_state_of(out_opt)
-        v_tree = gal.extract_projected_v(g)
-        if attack is not None:
-            a = torch.as_tensor(attack, dtype=torch.float32,
-                                device=self.device)
-
-            def hit(x):
-                if x is None:
-                    return None
-                ab = a.reshape((-1,) + (1,) * (x.ndim - 1))
-                return (x.float() * ab).to(x.dtype)
-
-            out_d = tmap(hit, out_d)
-            v_tree = tmap(hit, v_tree, is_leaf=lambda x: x is None)
-        if self.cfg.quarantine:
-            keep = agg.screen_factored_clients(
-                out_d, v_tree, scales, w, zmax=self.cfg.quarantine_zmax)
-            out_d = agg.mask_client_rows(out_d, keep)
-            v_tree = agg.mask_client_rows(v_tree, keep)
-            scales = torch.where(keep, scales, 1.0)   # enters the sbar sum
-            w = agg.quarantine_weights(w, keep)
+        """The defense gate between the local phase and 𝒜/𝒮
+        (:func:`guard_uplink` with this config's quarantine). Returns
+        (out_d, out_opt, scales, w) and sets ``self.quarantined``."""
+        c = self.cfg
+        out_d, out_opt, scales, w, keep = guard_uplink(
+            out_d, out_opt, scales, w, attack, c.quarantine,
+            c.quarantine_zmax)
+        if keep is not None:
             self.quarantined = ~keep
-        out_opt = gal.replace_galore_state(out_opt,
-                                           gal.with_projected_v(g, v_tree))
         return out_d, out_opt, scales, w
 
     def _run_round_dense(self, batches, w, k_clients, eager: bool,
@@ -592,15 +744,9 @@ class FedEngine:
         clients, T steps, ...) axes; ``masks`` (bool (K, C)) one
         participation mask per round. Returns ``local_loss`` (K, C, T)."""
         k_rounds, k_clients = tree.tree_leaves(round_batches)[0].shape[:2]
-        if masks is not None:
-            masks = np.asarray(masks, bool)
-            if masks.shape != (int(k_rounds), int(k_clients)):
-                raise ValueError(f"masks shape {masks.shape} != "
-                                 f"({k_rounds}, {k_clients})")
-        losses = torch.stack([
-            self.run_round(_index(round_batches, r), weights,
-                           None if masks is None else masks[r])["local_loss"]
-            for r in range(int(k_rounds))])
+        masks = round_masks(masks, int(k_rounds), int(k_clients))
+        losses = rounds_in_order(self.run_round, round_batches, weights,
+                                 masks, "local_loss")
         return {"local_loss": losses,
                 "mean_final_loss": float(losses[-1, :, -1].mean())}
 
@@ -611,27 +757,15 @@ class FedEngine:
         identical across clients."""
         return round_idx == 0 and self._round0_adaptive()
 
-    @torch.no_grad()
     def _aggregate_factored(self, global_trainable, out_deltas, out_opt,
                             base_scales, w, round_idx, robust: str = "none"):
-        """𝒜 for factored clients: ``(Σᵢ wᵢ sᵢ)·W + Σᵢ wᵢ lift(Rᵢ, Bᵢ)`` per
-        target leaf; ``robust`` swaps the weighted mean over the factored
-        stacks for a robust reduction ('none' is exactly the plain
-        path)."""
-        bases = gal.extract_bases(gal.galore_state_of(out_opt))
-        hetero = self._round0_hetero(round_idx)
-        sbar = torch.einsum("c,c->", w, base_scales.float())
+        """𝒜 for factored clients (:func:`aggregate_factored`), on
+        per-client bases after the adaptive round 0."""
         c = self.cfg
-
-        def one(w0, d_stack, b_stack):
-            side = (proj.RIGHT if d_stack.shape[-1] == b_stack.shape[-1]
-                    else proj.LEFT)
-            lifted = agg.robust_factored_lift(
-                d_stack, b_stack, side, w, robust, hetero=hetero,
-                trim=c.robust_trim, iters=c.robust_iters, tol=c.robust_tol)
-            return (sbar * w0.float() + lifted).to(w0.dtype)
-
-        return tree.tree_map(one, global_trainable, out_deltas, bases)
+        return aggregate_factored(
+            global_trainable, out_deltas, out_opt, base_scales, w,
+            hetero=self._round0_hetero(round_idx), robust=robust,
+            trim=c.robust_trim, iters=c.robust_iters, tol=c.robust_tol)
 
     @torch.no_grad()
     def _aggregate_pure(self, stacked, w, frozen, round_idx):
@@ -686,73 +820,37 @@ class FedEngine:
         return (self.spec.state_sync != "none"
                 and self.spec.optimizer == "galore_adamw")
 
-    def _uplink(self, stacked_opt):
-        """Per-leaf lists of the client-stacked projected ṽ (K, ., r) and
-        bases (K, dim, r), and the ṽ tree's structure."""
-        g_stack = gal.galore_state_of(stacked_opt)
-        is_none = lambda x: x is None  # noqa: E731
-        vs, treedef = tree.tree_flatten(gal.extract_projected_v(g_stack),
-                                        is_leaf=is_none)
-        bs = tree.tree_leaves(gal.extract_bases(g_stack), is_leaf=is_none)
-        return vs, bs, treedef
-
-    @staticmethod
-    def _side(v_stack, b_stack):
-        rank = b_stack.shape[-1]
-        return rank, proj.RIGHT if v_stack.shape[-1] == rank else proj.LEFT
-
-    @torch.no_grad()
     def _sync_states(self, stacked_opt, w, round_idx,
                      exclude_zero: bool = False, robust: str = "none"):
-        """Factored 𝒮: shared-basis rounds sync on the projected ṽ
-        directly; the adaptive round 0 runs the heterogeneous-basis sync
-        (r×r transfer Grams). One batched program per shape bucket.
-        ``exclude_zero`` (masked and guarded rounds) drops zero-weight
-        clients from the AJIVE joint basis; ``robust`` robustifies the
-        reductions over the moment stacks."""
-        protocol = self.spec.state_sync
-        hetero = self._round0_hetero(round_idx)
+        """Factored 𝒮 (:func:`sync_factored`): the adaptive round 0 runs
+        the heterogeneous-basis sync. ``exclude_zero`` (masked and guarded
+        rounds) drops zero-weight clients from the AJIVE joint basis;
+        ``robust`` robustifies the reductions over the moment stacks."""
         c = self.cfg
-        kw = dict(exclude_zero_weights=exclude_zero, robust=robust,
-                  trim=c.robust_trim, iters=c.robust_iters, tol=c.robust_tol)
-
-        def leaf_fn(v_stack, b_stack, n_batch):
-            rank, side = self._side(v_stack, b_stack)
-            if hetero:
-                return sync_lib.sync_block_hetero_factored(
-                    protocol, v_stack, b_stack, side, w, rank, **kw)
-            return sync_lib.sync_block_synced_factored(
-                protocol, v_stack, side, w, rank, batch_dims=n_batch, **kw)
-
-        vs, bs, treedef = self._uplink(stacked_opt)
-        return treedef.unflatten(sync_lib.map_sync_leaves(leaf_fn, vs, bs))
+        return sync_factored(
+            self.spec.state_sync, stacked_opt, w,
+            hetero=self._round0_hetero(round_idx),
+            exclude_zero_weights=exclude_zero, robust=robust,
+            trim=c.robust_trim, iters=c.robust_iters, tol=c.robust_tol)
 
     @torch.no_grad()
     def _sync_states_eager(self, stacked_opt, w, round_idx):
         """The eager oracle's 𝒮, leaf by leaf: the factored shared-basis
         path when ``factored_sync`` holds and bases are shared, otherwise
-        (the adaptive round 0, or ``factored_sync=False``) each client's ṽ
-        lifted with its own basis, synchronized densely and re-projected
-        onto client 0's end-of-round basis; stacked scan blocks (K, nb,
-        ., r) sync as one batch, as under the reference's vmap."""
+        (the adaptive round 0, or ``factored_sync=False``) the dense lift
+        (:func:`dense_sync_block`)."""
         protocol = self.spec.state_sync
         use_factored = (self.cfg.factored_sync
                         and not self._round0_hetero(round_idx))
 
         def sync_block(v_stack, b_stack):
-            rank, side = self._side(v_stack, b_stack)
-            if use_factored:
-                return sync_lib.sync_block_synced_factored(
-                    protocol, v_stack, side, w, rank)
-            v32, b32 = v_stack.float(), b_stack.float()
-            if side == proj.RIGHT:
-                views = torch.einsum("k...mr,k...nr->k...mn", v32, b32)
-            else:
-                views = torch.einsum("k...mr,k...rn->k...mn", b32, v32)
-            lifted = sync_lib.sync_lifted_views(protocol, views, w, rank)
-            return sync_lib.project_state(lifted, b_stack[0], side)
+            if not use_factored:
+                return dense_sync_block(protocol, v_stack, b_stack, w)
+            rank, side = block_side(v_stack, b_stack)
+            return sync_lib.sync_block_synced_factored(
+                protocol, v_stack, side, w, rank)
 
-        vs, bs, treedef = self._uplink(stacked_opt)
+        vs, bs, treedef = client_uplink(stacked_opt)
         return treedef.unflatten([None if v is None else sync_block(v, b)
                                   for v, b in zip(vs, bs)])
 

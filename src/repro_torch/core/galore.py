@@ -19,9 +19,10 @@ The update is shape-bucketed: target blocks with identical
 plain version on the CPU); the JAX package's per-leaf loop stays there as
 the reference. Differences from the reference: the step count
 and round seed are host ints (JAX carries traced scalars), and a refresh
-decision is Python control flow where JAX has ``lax.cond``. The vmap/scan
+decision is Python control flow where JAX has ``lax.cond``. Client-stacked
+states (``stack_opt_state``) keep the counters as host ints; the vmap/scan
 layout helpers (``client_opt_axes``, ``chunk_opt_state``) have no
-counterpart: the port's engine runs clients one after another.
+counterpart: the port runs clients one after another.
 """
 from __future__ import annotations
 
@@ -524,6 +525,21 @@ def stack_opt_states(states: list):
     stacked = [torch.stack(col) for col in zip(*leaves)]
     it = iter(stacked)
     return map_opt_layout(first, batched=lambda _: next(it))
+
+
+def stack_opt_state(opt_state, n_clients: int, copy: bool = False):
+    """Broadcast one optimizer state along a new leading client axis; the
+    counters stay host ints. ``copy=True`` gives every client its own
+    buffers (an expanded view otherwise)."""
+    def bcast(x):
+        out = x.expand((n_clients,) + tuple(x.shape))
+        return out.clone() if copy else out
+    return map_opt_layout(opt_state, batched=bcast)
+
+
+def opt_state_row(stacked, c: int):
+    """Client ``c``'s optimizer state out of a client-stacked one."""
+    return map_opt_layout(stacked, batched=lambda x: x[c])
 
 
 def galore_state_of(opt_state) -> GaloreState:

@@ -7,8 +7,9 @@ own name with numpy children and become the port's classes of that name:
 ``MultiAdapterDelta`` in params; ``GaloreState``, ``GaloreBlockState``,
 ``DenseMoments`` and the chain's ``ClipState``, ``WeightDecayState`` and
 ``ScaleByLrState`` in an optimizer state (step counts and seeds become
-host ints, as the port keeps them); ``DecodeState`` with its ``KVCache``,
-``MLACache``, ``MambaState`` or ``RwkvState`` layers in a decode state.
+host ints, as the port keeps them, a client-stacked count too);
+``DecodeState`` with its ``KVCache``, ``MLACache``, ``MambaState`` or
+``RwkvState`` layers in a decode state.
 """
 from __future__ import annotations
 
@@ -73,6 +74,16 @@ def _is_node(name):
 _STATELESS = {"ClipState": ClipState, "WeightDecayState": WeightDecayState}
 
 
+def _host_int(a) -> int:
+    """A step count or seed as a host int; a client-stacked (C,) count
+    (the reference's stacked layout batches the lr count) must hold one
+    value."""
+    a = np.asarray(a)
+    if a.ndim and not (a == a.flat[0]).all():
+        raise ValueError(f"client counts differ: {a}")
+    return int(a.flat[0]) if a.ndim else int(a)
+
+
 def opt_state_from_jax(state_of_numpy, device):
     """The port's optimizer state from a JAX (possibly chained) GaLore
     optimizer state given as numpy: a ``GaloreState`` or a tuple of the
@@ -92,10 +103,10 @@ def opt_state_from_jax(state_of_numpy, device):
             is_blk = lambda x: (_is_node("GaloreBlockState")(x)  # noqa: E731
                                 or _is_node("DenseMoments")(x))
             return gal.GaloreState(
-                count=int(s.count), seed=int(s.seed),
+                count=_host_int(s.count), seed=_host_int(s.seed),
                 blocks=tree.tree_map(block, s.blocks, is_leaf=is_blk))
         if name == "ScaleByLrState":
-            return ScaleByLrState(count=int(s.count))
+            return ScaleByLrState(count=_host_int(s.count))
         if name in _STATELESS:
             return _STATELESS[name]()
         raise TypeError(f"no carry-across for optimizer state {name}")
